@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from `masg_tpu_torch/csrc/` with nvcc (sm_90a) and
-   print ptxas' register / shared-memory / spill report;
+2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
+   (sm_90a), all at once, and print ptxas' register / shared-memory / spill report;
 3. K1 (flash-attention forward) against its plain PyTorch version:
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
@@ -15,13 +15,27 @@ Phases (any failure exits non-zero; nothing is caught):
    least time the card could take (bound);
 4. K4 (fused MRF stage) against its plain version at the HiFi-GAN V1 stage
    shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16);
-5. the main path: flagship FastSpeech2 (~35M parameters, seeded random
+5. K2/K3 (flash-attention dQ and dK/dV) against their plain versions at the
+   K1 shapes, with the cotangent zero at padded query rows; times of the
+   kernels, the plain versions, the backward of masked SDPA (K2 + K3
+   together, a yardstick the port never calls) and the bound;
+6. the inference path: flagship FastSpeech2 (~35M parameters, seeded random
    weights, duration bias ln 5) + HiFi-GAN V1 through `synthesize_batch` ->
    `vocoder_infer` at B=16, L=128, T_mel=640, in bfloat16 and in float32,
    with the launch counters reset just before and read just after; the
    float32 kernel path against the plain path; text->wav real-time factors;
    one speaker_distribution -> GMM sample -> synthesize_from_speaker_emb run;
-6. one `{"kernels": [...]}` line; 7. the `{"ok": true, ...}` line, last.
+7. the train path: the plain FastSpeech2 train step (`train.step`) at the
+   flagship width and B=16, L=128, T_mel=640: float32 kernel vs plain path
+   (loss, every gradient, BatchNorm statistics; dropout off), launch counts
+   per step, steps/s in float32 and bf16 autocast on both paths, and 20
+   bf16-autocast steps against float32;
+8. a torch.profiler window over 3 kernel-path train steps per dtype: the
+   device's idle share, K1-K3's and the optimizer's device time;
+9. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
+   width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
+   and `cli.evaluate` on the saved step;
+10. one `{"kernels": [...]}` line; 11. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -32,8 +46,16 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
   cuDNN's, outputs up to ~8); bfloat16: 0.125 (each conv output is rounded
   to bfloat16 on both sides; a rounding flip early in the chain carries on:
   4 ulps at magnitudes 4-8).
+- K2/K3 float32: dQ (at valid rows), dK, dV within 5e-3 (masg_tpu's flash-
+  gradient bar; sums in another order give ~1e-6); bfloat16: atol = rtol =
+  1e-2 (both sides round the same float32 sums to bfloat16, one ulp at
+  |grad| up to 4); dK and dV exactly 0 at keys >= len; no NaN.
 - main path float32: duration_rounded and mel_len identical, postnet_mel
   within 2e-4 (masg_tpu's flash-vs-XLA model bar), int16 wavs within 2 LSB.
+- train step float32: losses within 1e-5 relative, every gradient within
+  2e-3 (masg_tpu's model-gradient-with-flash bar), BatchNorm statistics
+  within 1e-5; 20 bf16-autocast steps within 25 % of float32's last loss
+  (tests/test_train_step.py); resumed losses within 1e-5 relative.
 """
 
 import json
@@ -148,7 +170,7 @@ def build_kernels():
 
     t0 = time.time()
     _build.build()
-    print(f"[build] both kernels built in {time.time() - t0:.1f} s")
+    print(f"[build] {len(_build.KERNELS)} kernel libraries built in {time.time() - t0:.1f} s")
     for name, log in _build.PTXAS_LOG.items():
         for line in log.splitlines():
             if ("Compiling entry" in line or "registers" in line or "spill" in line
@@ -284,19 +306,24 @@ def text_to_wav(model, vocoder, batch):
     return out, wavs
 
 
-def reset_counts():
-    from masg_tpu_torch.ops.attention import flash_attention
+def _wrappers():
+    """The kernel wrappers, K1-K4, each counting its launches."""
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dq)
     from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
 
-    flash_attention.launches = 0
-    fused_mrf_stage.launches = 0
+    return {"K1": flash_attention, "K2": flash_attention_dq, "K3": flash_attention_dkv,
+            "K4": fused_mrf_stage}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from masg_tpu_torch.ops.attention import flash_attention
-    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
-
-    return flash_attention.launches, fused_mrf_stage.launches
+    """{kernel: launches since the last reset}."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def main_path(smi):
@@ -322,9 +349,9 @@ def main_path(smi):
         counts = read_counts()
         mel_len = out.mel_len.cpu().numpy()
         print(f"[main] {dname}: FastSpeech2 {n_params / 1e6:.1f}M params, launches "
-              f"K1={counts[0]} K4={counts[1]}, mel_len min/max {mel_len.min()}/"
+              f"{counts}, mel_len min/max {mel_len.min()}/"
               f"{mel_len.max()}, wav {len(wavs)} x {wavs[0].shape[0]} samples")
-        assert counts == (10, 2), f"expected K1=10, K4=2 launches, got {counts}"
+        assert counts == {"K1": 10, "K2": 0, "K3": 0, "K4": 2}, counts
         assert (mel_len > 0).all(), mel_len
         assert torch.isfinite(out.postnet_mel.float()).all()
         wav_f = vocoder(out.postnet_mel)
@@ -442,6 +469,7 @@ def main_path_kernel_times(results):
     k4["bound_ms"], k4["bound_by"] = bound(k4["ops"], k4["bytes"], dname)
 
     launches = res["launches"]
+    launches = (launches["K1"], launches["K4"])
     entries = [
         {"name": "flash_attention_fwd (K1)", "route": "cuda",
          "source": "masg_tpu_torch/csrc/flash_fwd.cu",
@@ -459,6 +487,414 @@ def main_path_kernel_times(results):
         print(f"[kernels] {e['name']}: per bfloat16 main-path forward ({e['launches']} "
               f"launches) kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
               f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return entries
+
+
+def flash_bwd_work(lengths, t, elem_bytes):
+    """((ops, bytes) of K2, (ops, bytes) of K3) for one call at these key
+    lengths. Per (b, h) with n = len: 3 (K2: s, dp, ds.k) and 4 (K3: s, dp,
+    p^T.do, ds^T.q) products of 2 n^2 Dh flops. K2 reads q, do, LSE and delta
+    at every row and k, v at the valid rows, and writes dq; K3 reads all six
+    at the valid rows and writes dk, dv at every row."""
+    valid = [min(int(n), t) for n in lengths]
+    nb, row = len(valid), DH * elem_bytes
+    sq = sum(n * n for n in valid)
+    kv = sum(2 * H * n * row for n in valid) + nb * 4  # valid k, v rows; lengths
+    k2 = (3 * 2 * H * sq * DH, nb * H * t * (3 * row + 8) + kv)
+    k3 = (4 * 2 * H * sq * DH, sum(H * n * (2 * row + 8) for n in valid) + kv
+          + nb * H * t * 2 * row)
+    return k2, k3
+
+
+def bwd_inputs(t, dtype, lens, gen):
+    """q, k, v, do (zero at query rows >= len), K1's lse, delta, and the
+    (B, 1, T, 1) valid-row mask."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import flash_attention
+
+    q, k, v = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE, dtype) for _ in range(3))
+    valid = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, :, None]
+    do = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE) * valid).to(dtype)
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, lse, delta, valid
+
+
+def sdpa_bwd_ms(q, k, v, do, lens, t):
+    """The library yardstick of K2 + K3 (the port never calls it): the
+    backward of masked scaled_dot_product_attention, timed as forward plus
+    torch.autograd.grad minus the forward alone."""
+    import torch
+
+    mask = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qr, kr, vr), do)
+
+    return cuda_ms(fwd_bwd, 10) - cuda_ms(fwd, 10)
+
+
+def bwd_errors(q, k, v, do, lse, delta, lens, valid, dtype):
+    """K2 and K3 against their plain versions: (dq err at valid rows, dk err,
+    dv err); asserts exact zeros of dk/dv past the length, no NaN, and the bar."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import (flash_attention_dkv, flash_attention_dkv_plain,
+                                              flash_attention_dq, flash_attention_dq_plain)
+
+    dq = flash_attention_dq(q, k, v, do, lse, delta, lens)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, lens)
+    torch.cuda.synchronize()
+    dq_ref = flash_attention_dq_plain(q, k, v, do, lse, delta, lens)
+    dk_ref, dv_ref = flash_attention_dkv_plain(q, k, v, do, lse, delta, lens)
+    for g in (dq, dk, dv):
+        assert not torch.isnan(g).any(), "NaN in a K2/K3 output"
+    for g in (dk, dv):
+        assert (g * ~valid == 0).all(), "dK/dV not exactly 0 at keys >= len"
+    errs = ((dq.float() - dq_ref.float()) * valid).abs().max().item(), \
+        (dk.float() - dk_ref.float()).abs().max().item(), \
+        (dv.float() - dv_ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert max(errs) <= 5e-3, errs
+    else:
+        for got, want in ((dq * valid, dq_ref * valid), (dk, dk_ref), (dv, dv_ref)):
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    return errs
+
+
+def check_flash_bwd():
+    """Phase: K2/K3 against their plain versions at B=16, H=2, Dh=128."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import (flash_attention_dkv, flash_attention_dkv_plain,
+                                              flash_attention_dq, flash_attention_dq_plain)
+
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for t in (128, 640, 1000):
+            lens = torch.randint(1, t + 1, (B,), generator=gen)
+            lens[0], lens[1], lens[2] = 0, 1, t
+            lens = lens.to(DEVICE)
+            args = bwd_inputs(t, dtype, lens, gen)
+            q, k, v, do, lse, delta, valid = args
+            errs = bwd_errors(*args[:6], lens, valid, dtype)
+            a = (q, k, v, do, lse, delta, lens)
+            ms = (cuda_ms(lambda: flash_attention_dq(*a), 10),
+                  cuda_ms(lambda: flash_attention_dkv(*a), 10))
+            plain = (cuda_ms(lambda: flash_attention_dq_plain(*a), 3),
+                     cuda_ms(lambda: flash_attention_dkv_plain(*a), 3))
+            lib = sdpa_bwd_ms(q, k, v, do, lens, t)
+            bounds = [bound(*w, dname) for w in flash_bwd_work(lens.tolist(), t,
+                                                               q.element_size())]
+            print(f"[K2/K3] {dname} T={t}: max err dQ {errs[0]:.3g} dK {errs[1]:.3g} "
+                  f"dV {errs[2]:.3g}, dK/dV exactly 0 past len; K2 {ms[0]:.4f} ms "
+                  f"(plain {plain[0]:.4f}, bound {bounds[0][0]:.4f} {bounds[0][1]}), "
+                  f"K3 {ms[1]:.4f} ms (plain {plain[1]:.4f}, bound {bounds[1][0]:.4f} "
+                  f"{bounds[1][1]}), sdpa backward {lib:.4f} ms")
+
+
+def train_state(cfg, use_flash, seed=0):
+    """A fresh train state on the card, weights from `seed` (the same for
+    both paths: `use_flash` changes no parameter)."""
+    import torch
+
+    from masg_tpu_torch.models import FastSpeech2
+    from masg_tpu_torch.train.state import create_train_state
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = FastSpeech2.from_config(cfg, use_flash=use_flash)
+    model.to(DEVICE)
+    return create_train_state(model, cfg.train.optimizer, cfg.model.transformer.encoder_hidden)
+
+
+def train_path(smi):
+    """Phase: the plain train step at full width (B=16, L=128, T_mel=640)."""
+    import copy
+
+    import torch
+
+    from masg_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = flagship_config()
+    batch = example_inputs(B=B, L=L, T=T_MEL)
+    db = batch_to_device(batch, DEVICE, torch.float32)
+
+    # f32, dropout off: one step's loss, gradients and BatchNorm statistics,
+    # kernel path against plain path from the same weights on the same batch
+    sides = []
+    for kernels in (True, False):
+        st = train_state(cfg, kernels)
+        for m in st.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        total, losses, eloss, _ = make_train_step(st.model).loss_fn(st.model, db)
+        total.backward()
+        sides.append((st.model, [float(x.detach()) for x in (total, *losses, eloss)]))
+    (mk, lk), (mp, lp) = sides
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp))
+    grad_err = max((a.grad - b.grad).abs().max().item()
+                   for a, b in zip(mk.parameters(), mp.parameters()))
+    bk, bp = mk.state_dict(), mp.state_dict()
+    bn_err = max((bk[n] - bp[n]).abs().max().item() for n in bk if "running_" in n)
+    print(f"[train] float32 kernel vs plain path, dropout off: max relative loss err "
+          f"{loss_err:.3g} (tol 1e-5), max|grad err| {grad_err:.3g} over "
+          f"{sum(1 for _ in mk.parameters())} tensors (tol 2e-3), max|BatchNorm "
+          f"statistics err| {bn_err:.3g} (tol 1e-5)")
+    assert loss_err <= 1e-5 and grad_err <= 2e-3 and bn_err <= 1e-5, (loss_err, grad_err,
+                                                                       bn_err)
+    del sides, mk, mp
+
+    # the main path: train steps through the entry points, counts per step
+    paths = {}
+    for dname, ac in (("float32", None), ("bfloat16", torch.bfloat16)):
+        for kernels in (True, False):
+            st = train_state(cfg, kernels)
+            paths[(dname, kernels)] = (st, make_train_step(st.model, autocast_dtype=ac))
+    counts = {}
+    for dname in ("float32", "bfloat16"):
+        st, step = paths[(dname, True)]
+        reset_counts()
+        st, m = step(st, db, 0)
+        torch.cuda.synchronize()
+        counts[dname] = read_counts()
+        assert counts[dname] == {"K1": 10, "K2": 10, "K3": 10, "K4": 0}, counts
+        assert torch.isfinite(m.total) and torch.isfinite(m.grad_norm)
+    print(f"[train] launches per train step (float32 and bfloat16): {counts['float32']}")
+
+    # steps/s: median of 10 timed steps after 2 warm-ups (bench.py's
+    # train_steps_per_s), kernel and plain paths in turns, dropout on
+    rates = {}
+    for dname in ("float32", "bfloat16"):
+        walls = {True: [], False: []}
+        for kernels in (True, False):
+            st, step = paths[(dname, kernels)]
+            for i in range(2):
+                step(st, db, i)
+        for r in range(10):
+            for kernels in ((True, False) if r % 2 == 0 else (False, True)):
+                st, step = paths[(dname, kernels)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(st, db, 10 + r)
+                torch.cuda.synchronize()
+                walls[kernels].append(time.perf_counter() - t0)
+        for kernels in (True, False):
+            w = statistics.median(walls[kernels])
+            rates[(dname, kernels)] = 1.0 / w
+            print(f"[train] {dname} {'kernel' if kernels else 'plain'} path: "
+                  f"{1.0 / w:.2f} steps/s ({w * 1e3:.1f} ms median of 10; walls "
+                  f"{[round(x * 1e3, 1) for x in walls[kernels]]} ms) on {smi}")
+    del paths
+
+    # bf16 autocast: 20 steps on one batch stay finite and track float32
+    cfg20 = copy.deepcopy(cfg)
+    cfg20.train.optimizer.warm_up_step = 400
+    last = {}
+    for dname, ac in (("float32", None), ("bfloat16", torch.bfloat16)):
+        st = train_state(cfg20, True)
+        step = make_train_step(st.model, autocast_dtype=ac)
+        for i in range(20):
+            st, m = step(st, db, i)
+            assert torch.isfinite(m.total), (dname, i)
+        last[dname] = float(m.total)
+        del st
+    rel = abs(last["bfloat16"] - last["float32"]) / abs(last["float32"])
+    print(f"[train] 20 steps on one batch: last loss float32 {last['float32']:.4f}, "
+          f"bfloat16 autocast {last['bfloat16']:.4f} (relative gap {rel:.3g}, tol 0.25)")
+    assert rel < 0.25, last
+    return {"batch": batch, "counts": counts["bfloat16"], "rates": rates}
+
+
+def _union_us(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, cur = 0.0, None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def profile_train_step(train, smi):
+    """Phase: a torch.profiler window of 3 kernel-path train steps (after 2
+    warm-ups) per dtype: the device's busy and idle share of the window's wall
+    time, device ops per step, K1-K3's device time, the device time inside the
+    optimizer step, and the heaviest device kernels. Then 5 unprofiled steps
+    of the same state: the idle share of their median step, taking the busy
+    time the profiler saw as the device time of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masg_tpu_torch.train.step import batch_to_device, make_train_step
+
+    n = 3
+    db = batch_to_device(train["batch"], DEVICE, torch.float32)
+    for dname, ac in (("float32", None), ("bfloat16", torch.bfloat16)):
+        st = train_state(flagship_config(), True)
+        step = make_train_step(st.model, autocast_dtype=ac)
+        for i in range(2):
+            step(st, db, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                step(st, db, 2 + i)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in evs if not getattr(e, "is_user_annotation", False)]
+        assert kern, f"{dname}: the profiler saw no device work"
+        iv = [(e.time_range.start, e.time_range.end) for e in kern]
+        busy = _union_us(iv)
+        opt = [(e.time_range.start, e.time_range.end) for e in evs
+               if getattr(e, "is_user_annotation", False) and e.name.startswith("Optimizer.step")]
+        opt_busy = sum(_union_us([(max(s, a), min(e, b)) for s, e in iv if s < b and e > a])
+                       for a, b in opt)
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+        flash = sum(t for name, t in by_name.items() if "flash_" in name)
+        print(f"[profile] {dname} kernel path: wall {wall_us / n / 1e3:.1f} ms/step, device "
+              f"busy {busy / n / 1e3:.1f} ms/step ({100 * (1 - busy / wall_us):.1f} % idle), "
+              f"{len(kern) // n} device ops/step; K1-K3 {flash / n / 1e3:.2f} ms/step; "
+              f"optimizer step {opt_busy / n / 1e3:.2f} ms/step busy within "
+              f"{sum(b - a for a, b in opt) / n / 1e3:.2f} ms/step; on {smi}")
+        for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+            print(f"[profile]   {t / n / 1e3:8.3f} ms/step  {name[:100]}")
+        walls = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st, db, 2 + n + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e6)
+        w = statistics.median(walls)
+        print(f"[profile] {dname} kernel path unprofiled: median step {w / 1e3:.1f} ms of 5 "
+              f"(walls {[round(x / 1e3, 1) for x in walls]} ms); with the profiled busy "
+              f"{busy / n / 1e3:.1f} ms/step, {100 * (1 - busy / n / w):.1f} % idle; on {smi}")
+        del st
+
+
+def _total_losses(cfg_dir):
+    from masg_tpu_torch.core.config import load_config_dir
+
+    cfg = load_config_dir(cfg_dir)
+    with open(os.path.join(cfg.train.path.log_path, "train", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in rows if r["tag"] == "Loss/total_loss"]
+
+
+def trainer_path():
+    """Phase: `cli.train` on a random 32-utterance corpus at the flagship
+    width, 4 steps, then a run resumed at step 2; then `cli.evaluate`."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from masg_tpu_torch.cli.evaluate import main as evaluate_main
+    from masg_tpu_torch.cli.train import main as train_main
+    from masg_tpu_torch.data.synthetic import write_config_dir, write_preprocessed_corpus
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
+    try:
+        pre = write_preprocessed_corpus(os.path.join(root, "pre"), n_utts=32, n_speakers=4,
+                                        n_val=4, phones=(48, 120), frames_per_phone=(1, 5))
+        cfg_dir = write_config_dir(os.path.join(root, "cfg"), pre, os.path.join(root, "out"),
+                                   step={"save_step": 2, "val_step": 4})
+        reset_counts()
+        state = train_main(["-c", cfg_dir, "--max_steps", "4"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        assert state.step == 4 and counts["K4"] == 0 and min(
+            counts[k] for k in ("K1", "K2", "K3")) > 0, counts
+        first = dict(_total_losses(cfg_dir))
+        train_main(["-c", cfg_dir, "--restore_step", "2", "--max_steps", "2"])
+        second = _total_losses(cfg_dir)[4:]
+        assert [s for s, _ in second] == [3, 4], second
+        errs = [abs(v - first[s]) / abs(first[s]) for s, v in second]
+        print(f"[trainer] cli.train: 4 steps (launches {counts}), resumed at step 2: "
+              f"step 3/4 losses {[round(first[3], 6), round(first[4], 6)]} vs "
+              f"{[round(v, 6) for _, v in second]}, max relative err {max(errs):.3g} "
+              f"(tol 1e-5)")
+        assert max(errs) <= 1e-5, errs
+        means = evaluate_main(["-c", cfg_dir, "--restore_step", "4"])
+        assert len(means) == 6 and all(math.isfinite(x) for x in means), means
+        print(f"[trainer] cli.evaluate on step 4: total loss {means[0]:.4f}")
+    finally:
+        shutil.rmtree(root)
+
+
+def train_kernel_times(train, smi):
+    """K1-K3 at the exact inputs the train step gave them: per step, 4
+    encoder calls (T=L, src lengths) + 6 decoder calls (T=T_mel, mel lengths),
+    in float32 and bfloat16; prints their share of a step. Returns the
+    kernels-line entries of K2 and K3 (bfloat16)."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dkv_plain, flash_attention_dq,
+                                              flash_attention_dq_plain)
+
+    gen = torch.Generator().manual_seed(4)
+    batch = train["batch"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        acc = {n: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "ops": 0.0, "bytes": 0.0}
+               for n in ("K2", "K3")}
+        k1_ms = library = 0.0
+        for t, lens, n_calls in ((L, batch["src_lens"], 4), (T_MEL, batch["mel_lens"], 6)):
+            lens_t = torch.as_tensor(lens, device=DEVICE)
+            args = bwd_inputs(t, dtype, lens_t, gen)
+            q, k, v, do, lse, delta, valid = args
+            errs = bwd_errors(*args[:6], lens_t, valid, dtype)
+            a = (q, k, v, do, lse, delta, lens_t)
+            k1_ms += n_calls * cuda_ms(lambda: flash_attention(q, k, v, lens_t), 10)
+            for name, fn, plain, err in (
+                    ("K2", flash_attention_dq, flash_attention_dq_plain, errs[0]),
+                    ("K3", flash_attention_dkv, flash_attention_dkv_plain, max(errs[1:]))):
+                e = acc[name]
+                e["err"] = max(e["err"], err)
+                e["ms"] += n_calls * cuda_ms(lambda: fn(*a), 10)
+                e["plain_ms"] += n_calls * cuda_ms(lambda: plain(*a), 3)
+            library += n_calls * sdpa_bwd_ms(q, k, v, do, lens_t, t)
+            for name, (ops, nbytes) in zip(("K2", "K3"),
+                                           flash_bwd_work(list(lens), t, q.element_size())):
+                acc[name]["ops"] += n_calls * ops
+                acc[name]["bytes"] += n_calls * nbytes
+        step_ms = 1e3 / train["rates"][(dname, True)]
+        total = k1_ms + acc["K2"]["ms"] + acc["K3"]["ms"]
+        print(f"[train] {dname} kernel path: K1 {k1_ms:.3f} + K2 {acc['K2']['ms']:.3f} + "
+              f"K3 {acc['K3']['ms']:.3f} = {total:.3f} ms per step (CUDA events), "
+              f"{100 * total / step_ms:.1f} % of the {step_ms:.1f} ms step; sdpa backward "
+              f"at the same inputs {library:.3f} ms, on {smi}")
+    entries = []
+    for name, fname, line in (("K2", "flash_attention_dq (K2)", 171),
+                              ("K3", "flash_attention_dkv (K3)", 216)):
+        e = acc[name]
+        bound_ms, bound_by = bound(e["ops"], e["bytes"], dname)
+        entries.append({
+            "name": fname, "route": "cuda", "source": "masg_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"masg_tpu/ops/attention.py:{line}",
+            "launches": train["counts"][name], "max_abs_err": e["err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            # one backward of masked SDPA computes dQ, dK and dV: K2 + K3 together
+            "library_ms": library})
+    for e in entries:
+        print(f"[kernels] {e['name']}: per bfloat16 train step ({e['launches']} launches) "
+              f"kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library (sdpa "
+              f"backward, K2 + K3) {e['library_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})")
     return entries
 
 
@@ -483,8 +919,13 @@ def main() -> int:
     build_kernels()
     check_flash()
     check_mrf()
+    check_flash_bwd()
     results = main_path(smi)
     entries = main_path_kernel_times(results)
+    train = train_path(smi)
+    profile_train_step(train, smi)
+    trainer_path()
+    entries[1:1] = train_kernel_times(train, smi)
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

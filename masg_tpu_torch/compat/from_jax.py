@@ -11,6 +11,8 @@ are the reference's torch names, so the result loads with `strict=True`:
 - `hifigan_state_dict_from_jax` is the inverse of masg_tpu's
   `convert_torch_state_dict` (models/hifigan.py): a conv kernel goes
   (k, in, out) -> (out, in, k), a transposed conv (k, in, out) -> (in, out, k);
+- `adam_state_from_jax` turns masg_tpu's Adam moments into the port's
+  `torch.optim.Adam` state under the same mapping;
 - `with_duration_bias` is the counterpart of masg_tpu.infer.serving's.
 
 Layouts: torch Linear weight (out, in) <- flax Dense kernel (in, out);
@@ -19,7 +21,7 @@ torch Conv1d weight (out, in, k) <- flax Conv kernel (k, in, out).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -69,11 +71,12 @@ def _variance_predictor(out, prefix, p):
     _lin(out, f"{prefix}.linear_layer", p["linear_layer"])
 
 
-def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]],
                             cfg: ExperimentConfig) -> Dict[str, torch.Tensor]:
     """masg_tpu FastSpeech2 params + batch_stats -> the port's FastSpeech2
     state_dict, derived buffers (position tables, bins, BatchNorm counters)
-    included."""
+    included. With `batch_stats` None the BatchNorm statistics are left out
+    (a tree shaped like the params, such as an Adam moment)."""
     if "jdit" in params:
         raise NotImplementedError(
             "JDIT weights: the JDIT teacher is not ported yet (ROADMAP.md, port "
@@ -107,16 +110,18 @@ def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str,
 
     _lin(out, "mel_linear", params["mel_linear"])
 
-    pn, bs = params["postnet"], batch_stats["postnet"]
+    pn = params["postnet"]
     n_convs = sum(1 for k in pn if k.startswith("conv_"))
     for i in range(n_convs):
         pre = f"postnet.convolutions.{i}"
         _conv(out, f"{pre}.0.conv", pn[f"conv_{i}"])
         out[f"{pre}.1.weight"] = _t(pn[f"bn_{i}"]["scale"])
         out[f"{pre}.1.bias"] = _t(pn[f"bn_{i}"]["bias"])
-        out[f"{pre}.1.running_mean"] = _t(bs[f"bn_{i}"]["mean"])
-        out[f"{pre}.1.running_var"] = _t(bs[f"bn_{i}"]["var"])
-        out[f"{pre}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        if batch_stats is not None:
+            bs = batch_stats["postnet"][f"bn_{i}"]
+            out[f"{pre}.1.running_mean"] = _t(bs["mean"])
+            out[f"{pre}.1.running_var"] = _t(bs["var"])
+            out[f"{pre}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
     if "speaker_emb" in params:
         out["speaker_emb.weight"] = _t(params["speaker_emb"]["embedding"])
@@ -125,6 +130,28 @@ def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str,
         _lin(out, "speaker_enc.sigma_linear.0", se["sigma_linear"])
         _lin(out, "speaker_enc.mu_linear", se["mu_linear"])
     return out
+
+
+def adam_state_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                        model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                        cfg: ExperimentConfig) -> Dict[str, Any]:
+    """masg_tpu's `ScaleByAdamTorchState` (count, mu, nu; numpy trees shaped
+    like the params) -> a `state_dict` for the port's `torch.optim.Adam` over
+    `model.parameters()`, under `fs2_state_dict_from_jax`'s name mapping.
+
+    The Adam math is the same on both sides, so a masg_tpu run resumes here
+    with its moments; position the schedule at `count` as well
+    (`train.optim.set_schedule_count`).
+    """
+    exp_avg = fs2_state_dict_from_jax(mu, None, cfg)
+    exp_avg_sq = fs2_state_dict_from_jax(nu, None, cfg)
+    sd = optimizer.state_dict()
+    state = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        state[i] = {"step": torch.tensor(float(np.asarray(count))),
+                    "exp_avg": exp_avg[name].to(p.dtype),
+                    "exp_avg_sq": exp_avg_sq[name].to(p.dtype)}
+    return {"state": state, "param_groups": sd["param_groups"]}
 
 
 def hifigan_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

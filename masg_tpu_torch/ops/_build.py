@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "masg_tpu_torch"
-KERNELS = ("flash_fwd", "fused_mrf")
+KERNELS = ("flash_fwd", "flash_bwd", "fused_mrf")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -101,15 +101,23 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "flash_fwd":
-        fn = lib.masg_flash_fwd
-        # q, k, v, lens, o, lse, bh, heads, t, dh, dtype, stream
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fns = [(lib.masg_flash_fwd,
+                # q, k, v, lens, o, lse, bh, heads, t, dh, dtype, stream
+                [p, p, p, p, p, p, i, i, i, i, i, p])]
+    elif name == "flash_bwd":
+        fns = [(lib.masg_flash_bwd_dq,
+                # q, k, v, do, lse, delta, lens, dq, bh, heads, t, dh, dtype, stream
+                [p, p, p, p, p, p, p, p, i, i, i, i, i, p]),
+               (lib.masg_flash_bwd_dkv,
+                # q, k, v, do, lse, delta, lens, dk, dv, bh, heads, t, dh, dtype, stream
+                [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])]
     else:
-        fn = lib.masg_fused_mrf
-        # x, out, w, b, t, c, dtype, n_res, n_dil, ks, dils, stream
-        fn.argtypes = [p, p, p, i, i, i, i, i, i,
-                       ctypes.POINTER(i), ctypes.POINTER(i), p]
-    fn.restype = i
+        fns = [(lib.masg_fused_mrf,
+                # x, out, w, b, t, c, dtype, n_res, n_dil, ks, dils, stream
+                [p, p, p, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), p])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
+        fn.restype = i
 
 
 def check(code: int, what: str) -> None:

@@ -17,7 +17,9 @@ torch.set_num_threads(1)
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dkv_plain, flash_attention_dq,
+                                              flash_attention_dq_plain, flash_attention_plain)
     from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -39,8 +41,31 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(ob.float(), ob_ref.float(), atol=1e-2, rtol=1e-2)
     with pytest.raises(TypeError):
         flash_attention(q.double(), k.double(), v.double(), lens)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        flash_attention(q.requires_grad_(), k, v, lens)
+
+    # K2/K3 through the autograd Function, against the plain versions: f32 at
+    # masg_tpu's flash-gradient bar (5e-3), bf16 at 1e-2 (both sides round the
+    # same f32 sums to bf16: about one bf16 ulp at |grad| up to 4)
+    valid = (torch.arange(200, device="cuda")[None, :] < lens[:, None])[:, None, :, None]
+    do = torch.randn(3, 2, 200, 128, generator=gen).cuda() * valid
+    for dtype, tol in ((torch.float32, 5e-3), (torch.bfloat16, 1e-2)):
+        qg, kg, vg = (x.detach().to(dtype).requires_grad_() for x in (q, k, v))
+        counts = (flash_attention.launches, flash_attention_dq.launches,
+                  flash_attention_dkv.launches)
+        o, lse = flash_attention(qg, kg, vg, lens, return_lse=True)
+        o.backward(do.to(dtype))
+        assert (flash_attention.launches, flash_attention_dq.launches,
+                flash_attention_dkv.launches) == tuple(c + 1 for c in counts)
+        delta = (do.to(dtype).float() * o.detach().float()).sum(-1)
+        args = (qg.detach(), kg.detach(), vg.detach(), do.to(dtype), lse, delta, lens)
+        dq_ref = flash_attention_dq_plain(*args)
+        dk_ref, dv_ref = flash_attention_dkv_plain(*args)
+        torch.testing.assert_close((qg.grad * valid).float(), (dq_ref * valid).float(),
+                                   atol=tol, rtol=tol if dtype == torch.bfloat16 else 0)
+        for got, want in ((kg.grad, dk_ref), (vg.grad, dv_ref)):
+            assert got.dtype == dtype and not torch.isnan(got).any()
+            assert (got * ~valid == 0).all() and (got[0] == 0).all()
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol if dtype == torch.bfloat16 else 0)
 
     # K4 at a V1 stage width over several tiles and both sequence edges
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
