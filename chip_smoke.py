@@ -7,14 +7,18 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
-   (sm_90a), all at once, and print ptxas' register / shared-memory / spill report;
+   (sm_90a), all at once, print ptxas' register / shared-memory / spill report,
+   and count the tensor-core instructions (HMMA, HGMMA) of every kernel entry
+   point in the SASS (`cuobjdump -sass`): the bf16 K1 and K4 must have some;
 3. K1 (flash-attention forward) against its plain PyTorch version:
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
    `scaled_dot_product_attention` (a yardstick the port never calls) and the
    least time the card could take (bound);
 4. K4 (fused MRF stage) against its plain version at the HiFi-GAN V1 stage
-   shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16);
+   shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16), and
+   a run that starts 1037 rows later, which must give the same bits at every
+   row more than 64 rows past the cut (float32 and bfloat16);
 5. K2/K3 (flash-attention dQ and dK/dV) against their plain versions at the
    K1 shapes, with the cotangent zero at padded query rows; times of the
    kernels, the plain versions, the backward of masked SDPA (K2 + K3
@@ -25,6 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    with the launch counters reset just before and read just after; the
    float32 kernel path against the plain path; text->wav real-time factors;
    one speaker_distribution -> GMM sample -> synthesize_from_speaker_emb run;
+   then a torch.profiler window over one bfloat16 kernel-path text->wav: the
+   device's idle share, K1's and K4's device time, the vocoder's device time
+   outside K4 and its host-only time;
 7. the train path: the plain FastSpeech2 train step (`train.step`) at the
    flagship width and B=16, L=128, T_mel=640: float32 kernel vs plain path
    (loss, every gradient, BatchNorm statistics; dropout off), launch counts
@@ -39,13 +46,15 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
-  bfloat16: atol = rtol = 1e-2 (both sides round the same float32 result to
-  bfloat16 after summing in another order: at most one bfloat16 ulp apart);
+  bfloat16: atol = rtol = 1e-2 (both sides round a float32 result to
+  bfloat16; the kernel also rounds p to bfloat16 for the tensor-core p.v
+  product, 2^-9 relative per term: one to two bfloat16 ulps apart), LSE
+  within 1e-4 (the kernel sums the unrounded float32 p);
   rows with no valid key: o == 0 and LSE == -inf on both sides.
 - K4 float32: 2e-5 (18 chained convolutions summed in another order than
   cuDNN's, outputs up to ~8); bfloat16: 0.125 (each conv output is rounded
   to bfloat16 on both sides; a rounding flip early in the chain carries on:
-  4 ulps at magnitudes 4-8).
+  4 ulps at magnitudes 4-8); a run from a later row: bit for bit.
 - K2/K3 float32: dQ (at valid rows), dK, dV within 5e-3 (masg_tpu's flash-
   gradient bar; sums in another order give ~1e-6); bfloat16: atol = rtol =
   1e-2 (both sides round the same float32 sums to bfloat16, one ulp at
@@ -169,13 +178,68 @@ def build_kernels():
     from masg_tpu_torch.ops import _build
 
     t0 = time.time()
-    _build.build()
+    paths = _build.build()
     print(f"[build] {len(_build.KERNELS)} kernel libraries built in {time.time() - t0:.1f} s")
     for name, log in _build.PTXAS_LOG.items():
         for line in log.splitlines():
             if ("Compiling entry" in line or "registers" in line or "spill" in line
                     or "smem" in line):
                 print(f"[build] {name}: {line.strip()}")
+    sass_mma_counts(_build.nvcc_path(), dict(zip(_build.KERNELS, paths)))
+
+
+def _kernel_name(mangled):
+    """The kernel's identifier in an Itanium-mangled name: a length-prefixed
+    identifier that starts with flash_ or mrf_ and ends with kernel (the
+    digits before it may also end a hash, so every suffix is tried)."""
+    import re
+
+    for m in re.finditer(r"(\d+)((?:flash|mrf)_\w+)", mangled):
+        digits, rest = m.groups()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            if n <= len(rest) and rest[:n].endswith("kernel"):
+                return rest[:n]
+    return mangled
+
+
+def _template_int(mangled):
+    import re
+
+    m = re.search(r"kernelI\w*?Li(\d+)E", mangled)
+    return m.group(1) if m else "?"
+
+
+def sass_mma_counts(nvcc, libs):
+    """Count the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per
+    kernel entry point in each built library's SASS (`cuobjdump -sass`, which
+    lies beside nvcc); fail unless every bf16 entry of K1 and K4 has some."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({cuobjdump})")
+    counts = {}
+    for lib, path in libs.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+        entry = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                entry = f"{_kernel_name(m.group(1))}<{_template_int(m.group(1))}>"
+                counts[(lib, entry)] = [0, 0]
+            elif entry is not None and "HGMMA" in line:
+                counts[(lib, entry)][1] += 1
+            elif entry is not None and "HMMA" in line:
+                counts[(lib, entry)][0] += 1
+    for (lib, entry), (hmma, hgmma) in sorted(counts.items()):
+        print(f"[build] {lib}: {entry}: {hmma} HMMA, {hgmma} HGMMA")
+    for base, want in (("flash_fwd_bf16_kernel", 4), ("mrf_bf16_kernel", 2)):
+        found = [(e, sum(c)) for (_, e), c in counts.items() if e.startswith(base + "<")]
+        assert len(found) == want, (base, found)
+        assert all(n > 0 for _, n in found), f"no tensor-core instruction in {found}"
+    return counts
 
 
 def check_flash():
@@ -245,7 +309,8 @@ def check_mrf():
     """Phase 4 at the V1 main-path stage shapes. Returns {dtype: {C: row}}."""
     import torch
 
-    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
+    from masg_tpu_torch.ops.fused_mrf import (fused_mrf_stage, fused_mrf_stage_plain,
+                                              pack_stage_weights)
 
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     gen = torch.Generator().manual_seed(1)
@@ -255,14 +320,23 @@ def check_mrf():
         for c, t in ((64, T_MEL * 128), (32, T_MEL * 256)):
             x = torch.randn(B, t, c, generator=gen).to(DEVICE, dtype)
             bps = random_mrf_params(c, ks, 3, gen, dtype)
+            packed = pack_stage_weights(bps, ks, 3, dtype, DEVICE)
             y = fused_mrf_stage(x, bps, ks, ds)
             torch.cuda.synchronize()
             y_ref = fused_mrf_stage_plain(x, bps, ks, ds)
             err = (y.float() - y_ref.float()).abs().max().item()
             tol = 2e-5 if dtype == torch.float32 else 0.125
             assert err <= tol, (dname, c, err, tol)
+            # tile position: a run that starts s rows later (s not a multiple
+            # of the tile) gives the same bits at every row > 64 past the cut
+            s0 = 1000 + 37
+            y_cut = fused_mrf_stage(x[:2, s0:].contiguous(), bps, ks, ds)
+            same = torch.equal(y_cut[:, 65:], y[:2, s0 + 65:])
+            print(f"[K4] {dname} C={c}: run from row {s0} equals the full run bit for bit "
+                  f"at rows > 64 past the cut: {same}")
+            assert same, (dname, c)
             row = {"err": err,
-                   "ms": cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds), 3),
+                   "ms": cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds, packed), 3),
                    "plain_ms": cuda_ms(lambda: fused_mrf_stage_plain(x, bps, ks, ds), 2),
                    "library_ms": None}
             row["bound_ms"], row["bound_by"] = bound(
@@ -415,7 +489,66 @@ def main_path(smi):
     assert torch.isfinite(out.postnet_mel).all() and int(out.mel_len[0]) > 0
     print(f"[main] speaker_distribution -> GMM sample -> synthesize_from_speaker_emb: "
           f"mel_len {int(out.mel_len[0])}, finite")
+    results["bfloat16"]["path"] = paths[("bfloat16", True)]
+    results["batch"] = batch
     return results
+
+
+def profile_inference(results, smi):
+    """Phase: a torch.profiler window over one bf16 kernel-path text->wav
+    (`synthesize_batch` -> `vocoder_infer`, after the warm-ups of `[rtf]`):
+    the device's busy time and idle share of the window, device ops, K1's and
+    K4's device time, and for text->mel and the vocoder apart (each ends in a
+    synchronize) the wall time, the device busy time and, in the vocoder, the
+    device time outside K4; then the six heaviest device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from masg_tpu_torch.infer.synthesis import synthesize_batch
+    from masg_tpu_torch.infer.vocoder import vocoder_infer
+
+    model, vocoder = results["bfloat16"]["path"]
+    batch = results["batch"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("masg::text_to_mel"):
+            out = synthesize_batch(model, batch, max_mel_len=T_MEL)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with record_function("masg::vocoder"):
+            vocoder_infer(out.postnet_mel, vocoder)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    walls = {"text_to_mel": (t1 - t0) * 1e6, "vocoder": (t2 - t1) * 1e6}
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in evs if not getattr(e, "is_user_annotation", False)]
+    assert kern, "the profiler saw no device work on the inference path"
+    iv = [(e.time_range.start, e.time_range.end) for e in kern]
+    busy = _union_us(iv)
+    wall = walls["text_to_mel"] + walls["vocoder"]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    k1 = sum(t for name, t in by_name.items() if "flash_fwd" in name)
+    k4 = sum(t for name, t in by_name.items() if "mrf_" in name)
+    print(f"[profile] bfloat16 inference, kernel path, one text->wav of B={B}: wall "
+          f"{wall / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms ({100 * (1 - busy / wall):.1f} "
+          f"% idle), {len(kern)} device ops; K1 {k1 / 1e3:.3f} ms, K4 {k4 / 1e3:.3f} ms "
+          f"(device time); on {smi}")
+    for part in ("text_to_mel", "vocoder"):
+        spans = [(e.time_range.start, e.time_range.end) for e in evs
+                 if getattr(e, "is_user_annotation", False) and e.name == f"masg::{part}"]
+        inside = [(max(s, a), min(e, b)) for a, b in spans for s, e in iv if s < b and e > a]
+        part_busy = _union_us(inside)
+        k4_part = sum(e.time_range.end - e.time_range.start for e in kern if "mrf_" in e.name
+                      and any(e.time_range.start < b and e.time_range.end > a for a, b in spans))
+        extra = (f", of which K4 {k4_part / 1e3:.1f} ms and other device work "
+                 f"{(part_busy - k4_part) / 1e3:.1f} ms" if part == "vocoder" else "")
+        print(f"[profile]   {part}: wall {walls[part] / 1e3:.1f} ms, device busy "
+              f"{part_busy / 1e3:.1f} ms{extra}, host-only {(walls[part] - part_busy) / 1e3:.1f} ms")
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+        print(f"[profile]   {t / 1e3:8.3f} ms  {name[:100]}")
 
 
 def main_path_kernel_times(results):
@@ -425,7 +558,8 @@ def main_path_kernel_times(results):
     import torch
 
     from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
-    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
+    from masg_tpu_torch.ops.fused_mrf import (fused_mrf_stage, fused_mrf_stage_plain,
+                                              pack_stage_weights)
 
     dtype, dname = torch.bfloat16, "bfloat16"
     res = results[dname]
@@ -456,12 +590,13 @@ def main_path_kernel_times(results):
     for c, t in ((64, T_MEL * 128), (32, T_MEL * 256)):
         x = torch.randn(B, t, c, generator=gen).to(DEVICE, dtype)
         bps = random_mrf_params(c, ks, 3, gen, dtype)
-        y = fused_mrf_stage(x, bps, ks, ds)
+        packed = pack_stage_weights(bps, ks, 3, dtype, DEVICE)  # as the generator caches it
+        y = fused_mrf_stage(x, bps, ks, ds, packed)
         y_ref = fused_mrf_stage_plain(x, bps, ks, ds)
         err = (y.float() - y_ref.float()).abs().max().item()
         assert err <= 0.125, err
         k4["err"] = max(k4["err"], err)
-        k4["ms"] += cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds), 3)
+        k4["ms"] += cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds, packed), 3)
         k4["plain_ms"] += cuda_ms(lambda: fused_mrf_stage_plain(x, bps, ks, ds), 2)
         ops, nbytes = mrf_work(B, t, c, ks, 3, x.element_size())
         k4["ops"] += ops
@@ -921,6 +1056,7 @@ def main() -> int:
     check_mrf()
     check_flash_bwd()
     results = main_path(smi)
+    profile_inference(results, smi)
     entries = main_path_kernel_times(results)
     train = train_path(smi)
     profile_train_step(train, smi)

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_mrf import LRELU_SLOPE, fused_mrf_stage, get_padding
+from ..ops.fused_mrf import (LRELU_SLOPE, PackedStage, fused_mrf_stage, get_padding,
+                             pack_stage_weights)
 
 
 class ResBlock(nn.Module):
@@ -86,10 +87,33 @@ class HiFiGANGenerator(nn.Module):
             for rk, rd in zip(self.resblock_kernel_sizes, self.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock(out_ch, rk, rd))
         self.conv_post = nn.Conv1d(ch // (2 ** len(upsample_rates)), 1, 7, padding=3)
+        # (stage, dtype, device) -> (parameter key, pinned tensors, PackedStage)
+        self._mrf_packed: dict = {}
 
     def _stage_is_fused(self, channels: int) -> bool:
         return (self.fused_mrf and channels <= 64
                 and all(k % 2 == 1 for k in self.resblock_kernel_sizes))
+
+    def packed_mrf(self, stage: int, dtype: torch.dtype, device) -> PackedStage:
+        """Stage `stage`'s MRF weights in K4's layout for `dtype` on `device`.
+
+        Packed once and reused until a parameter of the stage changes: a
+        `load_state_dict` or an optimizer step bumps a tensor's version, and
+        `.to` gives it new storage. The cache keeps the packed tensors'
+        sources alive, so a freed storage cannot come back at the same
+        address with the same version."""
+        n_res = len(self.resblock_kernel_sizes)
+        blocks = self.resblocks[stage * n_res:(stage + 1) * n_res]
+        params = [p for b in blocks for p in b.parameters()]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        slot = (stage, dtype, torch.device(device))
+        hit = self._mrf_packed.get(slot)
+        if hit is None or hit[0] != key:
+            packed = pack_stage_weights([b.kernel_params() for b in blocks],
+                                        self.resblock_kernel_sizes,
+                                        len(self.resblock_dilation_sizes[0]), dtype, device)
+            hit = self._mrf_packed[slot] = (key, [p.detach() for p in params], packed)
+        return hit[2]
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel: (B, T, n_mels) channel-last -> wav (B, T * prod(rates))."""
@@ -99,10 +123,11 @@ class HiFiGANGenerator(nn.Module):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             blocks = self.resblocks[i * n_res:(i + 1) * n_res]
             if self._stage_is_fused(x.shape[1]):
+                packed = self.packed_mrf(i, x.dtype, x.device) if x.is_cuda else None
                 x = fused_mrf_stage(x.transpose(1, 2).contiguous(),
                                     [b.kernel_params() for b in blocks],
                                     self.resblock_kernel_sizes,
-                                    self.resblock_dilation_sizes).transpose(1, 2)
+                                    self.resblock_dilation_sizes, packed).transpose(1, 2)
                 continue
             xs = None
             for block in blocks:

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, `build/masg_tpu_torch/lib<name>-<hash>.so`
 under the repository root, and loaded with `ctypes`. The hash covers the
-source and the flags, so an edited source builds anew. Builds start at
-first use (or all at once, in parallel, through `build()`), never at import.
+source, the shared `csrc/*.cuh` headers and the flags, so an edited source
+builds anew. Builds start at first use (or all at once, in parallel, through
+`build()`), never at import.
 
 There is no fallback: without `nvcc` or a card, `load` raises.
 """
@@ -46,6 +47,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared headers
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -113,8 +115,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                 [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])]
     else:
         fns = [(lib.masg_fused_mrf,
-                # x, out, w, b, t, c, dtype, n_res, n_dil, ks, dils, stream
-                [p, p, p, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), p])]
+                # x, out, w, bias, acc, b, t, c, dtype, n_res, n_dil, ks, dils, stream
+                [p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), p])]
     for fn, argtypes in fns:
         fn.argtypes = argtypes
         fn.restype = i

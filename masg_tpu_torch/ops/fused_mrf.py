@@ -9,13 +9,16 @@ function as per-conv `F.conv1d` calls with each conv's own zero padding.
 
 `block_params[j]` is resblock j's dict in masg_tpu's layout:
 `convs{1,2}_{i}_kernel` (k, C_in, C_out) and `convs{1,2}_{i}_bias` (C,).
-x and the result are channel-last (B, T, C). Inference only.
+x and the result are channel-last (B, T, C). Inference only. The kernel
+takes them packed (`pack_stage_weights`: rounded to the working dtype, and
+for bf16 in the tensor cores' fragment order); a caller that runs a stage
+many times packs once and passes `packed` (`HiFiGANGenerator.packed_mrf`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,30 +67,94 @@ def fused_mrf_stage_plain(x: torch.Tensor, block_params: Sequence[dict],
     return (xs / len(kernel_sizes)).transpose(1, 2)
 
 
-def _pack_weights(block_params, kernel_sizes, n_dil, c, dtype, device):
-    """f32 buffer in the kernel's order: per resblock, per unit,
-    w1 (k, C, C), b1, w2 (k, C, C), b2 (rounded to the working dtype)."""
-    parts = []
-    for bp, k in zip(block_params, kernel_sizes):
-        for i in range(n_dil):
+class PackedStage(NamedTuple):
+    """One stage's conv weights in K4's layout (`pack_stage_weights`)."""
+
+    weight: torch.Tensor  # f32 (k, C_in, C_out) per conv, or bf16 in mma fragment order
+    bias: torch.Tensor  # f32 (n_conv, C), values rounded to the working dtype
+    kernel_sizes: Tuple[int, ...]
+    n_dil: int
+
+
+def _fragment_index(c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C_in, C_out) index of each element of one tap's mma fragments,
+    (C/16 k-steps, C/16 n-tile pairs, 32 lanes, 8), csrc/fused_mrf.cu's order:
+    element e of lane l holds k row 16 kk + 2 (l % 4) + e % 2 + 8 ((e % 4) // 2)
+    and column 8 (2 np + e // 4) + l // 4."""
+    kk, np_, lane, e = torch.meshgrid(torch.arange(c // 16), torch.arange(c // 16),
+                                      torch.arange(32), torch.arange(8), indexing="ij")
+    ci = 16 * kk + 2 * (lane % 4) + e % 2 + 8 * ((e % 4) // 2)
+    co = 8 * (2 * np_ + e // 4) + lane // 4
+    return ci, co
+
+
+def pack_stage_weights(block_params: Sequence[dict], kernel_sizes: Sequence[int],
+                       n_dil: int, dtype: torch.dtype, device) -> PackedStage:
+    """The stage's weights as K4 takes them for `dtype` on `device`: the
+    kernels rounded to `dtype` (f32: (k, C_in, C_out) each; bf16: the mma
+    fragment order of `_fragment_index`), the biases rounded to `dtype` and
+    held in f32."""
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"fused_mrf kernel takes f32 or bf16, got {dtype}")
+    c = block_params[0]["convs1_0_kernel"].shape[-1]
+    if dtype == torch.bfloat16 and c % 16:
+        raise ValueError(f"the bf16 fused_mrf kernel takes C divisible by 16, got {c}")
+    index = ([i.to(device) for i in _fragment_index(c)] if dtype == torch.bfloat16
+             else None)
+    weights, biases = [], []
+    with torch.no_grad():
+        # the kernel's order: per resblock, per unit, conv1 then conv2
+        for bp, k in zip(block_params, kernel_sizes):
+            for i in range(n_dil):
+                for cn in ("convs1", "convs2"):
+                    w = bp[f"{cn}_{i}_kernel"]
+                    if tuple(w.shape) != (k, c, c):
+                        raise ValueError(f"{cn}_{i}_kernel must be ({k}, {c}, {c}), "
+                                         f"got {tuple(w.shape)}")
+                    w = w.to(device=device, dtype=dtype)
+                    weights.append((w if index is None else w[:, index[0], index[1]])
+                                   .reshape(-1))
+                    biases.append(bp[f"{cn}_{i}_bias"].to(device=device, dtype=dtype).float())
+        return PackedStage(torch.cat(weights).contiguous(), torch.stack(biases).contiguous(),
+                           tuple(kernel_sizes), n_dil)
+
+
+def unpack_stage_weights(packed: PackedStage) -> list:
+    """`pack_stage_weights` undone: resblock dicts of `convs{1,2}_{i}_kernel`
+    (k, C, C) and `_bias` (C,) in the packed dtype."""
+    c = packed.bias.shape[1]
+    dtype = packed.weight.dtype
+    index = ([i.to(packed.weight.device) for i in _fragment_index(c)]
+             if dtype == torch.bfloat16 else None)
+    blocks, pos, n = [], 0, 0
+    for k in packed.kernel_sizes:
+        bp = {}
+        for i in range(packed.n_dil):
             for cn in ("convs1", "convs2"):
-                w = bp[f"{cn}_{i}_kernel"]
-                if tuple(w.shape) != (k, c, c):
-                    raise ValueError(f"{cn}_{i}_kernel must be ({k}, {c}, {c}), "
-                                     f"got {tuple(w.shape)}")
-                parts.append(w.to(device=device, dtype=dtype).float().reshape(-1))
-                parts.append(bp[f"{cn}_{i}_bias"].to(device=device, dtype=dtype)
-                             .float().reshape(-1))
-    return torch.cat(parts).contiguous()
+                flat = packed.weight[pos:pos + k * c * c]
+                pos += k * c * c
+                if index is None:
+                    w = flat.reshape(k, c, c)
+                else:
+                    w = torch.empty(k, c, c, dtype=dtype, device=flat.device)
+                    w[:, index[0], index[1]] = flat.reshape((k,) + tuple(index[0].shape))
+                bp[f"{cn}_{i}_kernel"] = w
+                bp[f"{cn}_{i}_bias"] = packed.bias[n].to(dtype)
+                n += 1
+        blocks.append(bp)
+    return blocks
 
 
 def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
                     kernel_sizes: Sequence[int],
-                    dilation_sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+                    dilation_sizes: Sequence[Sequence[int]],
+                    packed: Optional[PackedStage] = None) -> torch.Tensor:
     """One MRF stage on channel-last x (B, T, C) -> (B, T, C).
 
     CUDA tensors launch kernel K4 (f32 or bf16, contiguous, C in 32/64, odd
-    kernels, chain radius <= 64); CPU tensors run `fused_mrf_stage_plain`.
+    kernels, chain radius <= 64) on `packed`, the weights that
+    `pack_stage_weights` made for x's dtype and device, or on `block_params`
+    packed now; CPU tensors run `fused_mrf_stage_plain`.
     """
     if x.device.type != "cuda":
         return fused_mrf_stage_plain(x, block_params, kernel_sizes, dilation_sizes)
@@ -113,16 +180,28 @@ def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
                              f"needs odd k, chain radius <= {KERNEL_HALO} and "
                              f"(k-1)/2*d <= {KERNEL_MAX_PAD}")
 
-    w = _pack_weights(block_params, kernel_sizes, n_dil, c, x.dtype, x.device)
+    if packed is None:
+        packed = pack_stage_weights(block_params, kernel_sizes, n_dil, x.dtype, x.device)
+    n_conv = 2 * n_dil * n_res
+    if (packed.weight.dtype != x.dtype or packed.weight.device != x.device
+            or packed.bias.device != x.device
+            or tuple(packed.bias.shape) != (n_conv, c) or packed.n_dil != n_dil
+            or packed.kernel_sizes != tuple(kernel_sizes)
+            or packed.weight.numel() != 2 * n_dil * sum(kernel_sizes) * c * c):
+        raise ValueError("packed weights do not match this stage, dtype or device")
     out = torch.empty_like(x)
+    # the bf16 kernel's f32 sum of the resblock outputs, one row per output row
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if x.dtype == torch.bfloat16 else None
     ks = (ctypes.c_int * n_res)(*kernel_sizes)
     dils = (ctypes.c_int * (n_res * n_dil))(*[d for ds in dilation_sizes for d in ds])
     lib = _build.load("fused_mrf")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.masg_fused_mrf(x.data_ptr(), out.data_ptr(), w.data_ptr(), b, t, c,
-                                  _KERNEL_DTYPES[x.dtype], n_res, n_dil, ks, dils,
-                                  stream)
+        code = lib.masg_fused_mrf(x.data_ptr(), out.data_ptr(), packed.weight.data_ptr(),
+                                  packed.bias.data_ptr(),
+                                  None if acc is None else acc.data_ptr(), b, t, c,
+                                  _KERNEL_DTYPES[x.dtype], n_res, n_dil, ks, dils, stream)
     _build.check(code, "fused_mrf")
     fused_mrf_stage.launches += 1
     return out

@@ -86,3 +86,70 @@ def test_kernels_match_plain_versions_on_the_card():
     with pytest.raises(ValueError):
         fused_mrf_stage(torch.randn(1, 10, 16, device="cuda"), blocks, ks, ds)
     torch.cuda.synchronize()
+
+
+def _mrf_blocks(c, gen, ks=(3, 7, 11)):
+    blocks = []
+    for kk in ks:
+        bp = {}
+        for i in range(3):
+            for cn in ("convs1", "convs2"):
+                bp[f"{cn}_{i}_kernel"] = (torch.randn(kk, c, c, generator=gen)
+                                          / (c * kk) ** 0.5).cuda()
+                bp[f"{cn}_{i}_bias"] = (0.1 * torch.randn(c, generator=gen)).cuda()
+        blocks.append(bp)
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t", [(32, 3000), (64, 2000)])
+def test_bf16_fused_mrf_matches_plain_over_tiles_and_edges(c, t):
+    """The tensor-core K4 (tiles of 1408 rows at C=32, 640 at C=64) at both
+    sequence edges and across tile joins: bar 0.125 (each conv output is
+    rounded to bf16 on both sides; a flip early in the chain carries on, 4
+    ulps at magnitudes 4-8). A run that starts 37 rows into the second tile
+    gives the same bits at every row more than 64 rows past the cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(c)
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    blocks = [{n: v.bfloat16() for n, v in b.items()} for b in _mrf_blocks(c, gen)]
+    x = torch.randn(2, t, c, generator=gen).cuda().bfloat16()
+    y = fused_mrf_stage(x, blocks, ks, ds)
+    y_ref = fused_mrf_stage_plain(x, blocks, ks, ds)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=0.125, rtol=0)
+    s0 = {32: 1408, 64: 640}[c] + 37
+    y_cut = fused_mrf_stage(x[:, s0:].contiguous(), blocks, ks, ds)
+    assert torch.equal(y_cut[:, 65:], y[:, s0 + 65:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bf16_flash_forward_ragged(dh):
+    """The tensor-core K1 at a ragged T (not a multiple of its 64-row tiles)
+    with lengths 0, 1, T and one in between: o at atol = rtol = 1e-2 (p is
+    rounded to bf16 for p.v), LSE at 1e-4, rows with no key give o = 0 and
+    LSE = -inf, no NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator().manual_seed(dh)
+    t = 200
+    q, k, v = (torch.randn(4, 2, t, dh, generator=gen).cuda().bfloat16() for _ in range(3))
+    lens = torch.tensor([0, 1, t, 77], device="cuda")
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, lens)
+    assert o.dtype == torch.bfloat16 and not torch.isnan(o.float()).any()
+    assert (o[0] == 0).all() and torch.isinf(lse[0]).all() and (lse[0] < 0).all()
+    assert torch.isfinite(lse[1:]).all()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=1e-4, rtol=0)
+    # a length-1 row attends to its one key: o = v[0] exactly
+    assert torch.equal(o[1], v[1, :, :1].expand_as(o[1]))
+    torch.cuda.synchronize()

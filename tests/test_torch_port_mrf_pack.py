@@ -1,0 +1,121 @@
+"""K4's packed weights (masg_tpu_torch.ops.fused_mrf.pack_stage_weights):
+the packing round-trips to the `convs{1,2}_{i}_kernel`/`_bias` tensors in
+both kernel dtypes, the bf16 fragment order is the one csrc/fused_mrf.cu
+reads, and HiFiGANGenerator packs a stage once and packs again when its
+weights change (load_state_dict, .to, an in-place update)."""
+
+import numpy as np
+import pytest
+import torch
+
+from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+from masg_tpu_torch.ops.fused_mrf import (PackedStage, fused_mrf_stage, pack_stage_weights,
+                                          unpack_stage_weights)
+
+torch.set_num_threads(1)
+
+KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
+KW = dict(n_mels=8, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+          upsample_initial_channel=128, resblock_kernel_sizes=KS, resblock_dilation_sizes=DS)
+
+
+def _blocks(c, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in KS:
+        bp = {}
+        for i in range(3):
+            for cn in ("convs1", "convs2"):
+                bp[f"{cn}_{i}_kernel"] = torch.from_numpy(
+                    rng.normal(size=(k, c, c)).astype(np.float32))
+                bp[f"{cn}_{i}_bias"] = torch.from_numpy(rng.normal(size=c).astype(np.float32))
+        out.append(bp)
+    return out
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packing_round_trips(c, dtype):
+    blocks = _blocks(c, c)
+    packed = pack_stage_weights(blocks, KS, 3, dtype, "cpu")
+    assert packed.weight.dtype == dtype and packed.bias.dtype == torch.float32
+    assert packed.weight.numel() == 2 * 3 * sum(KS) * c * c
+    assert packed.bias.shape == (18, c)
+    back = unpack_stage_weights(packed)
+    for want, got in zip(blocks, back):
+        assert set(want) == set(got)
+        for name in want:
+            assert torch.equal(got[name], want[name].to(dtype)), name
+
+
+def test_bf16_fragment_order():
+    """Spot-check the order the kernel reads: lane l, element e of the first
+    uint4 of tap j holds W[j][2 (l % 4) + e % 2 + 8 ((e % 4) // 2)][l // 4]
+    for e < 4 and column 8 + l // 4 for e >= 4."""
+    c = 32
+    blocks = _blocks(c, 1)
+    w = blocks[0]["convs1_0_kernel"].to(torch.bfloat16)
+    frag = pack_stage_weights(blocks, KS, 3, torch.bfloat16, "cpu").weight
+    frag = frag[:3 * c * c].reshape(3, c // 16, c // 16, 32, 8)
+    for j in range(3):
+        for lane in (0, 5, 31):
+            for e in range(8):
+                ci = 2 * (lane % 4) + e % 2 + 8 * ((e % 4) // 2)
+                co = 8 * (e // 4) + lane // 4
+                assert frag[j, 0, 0, lane, e] == w[j, ci, co]
+    # k-step 1, n-tile pair 1 of the last tap
+    assert frag[2, 1, 1, 9, 6] == w[2, 16 + 2 * 1 + 0 + 8, 8 * 3 + 2]
+
+
+def test_generator_packs_once_and_sees_new_weights():
+    gen = HiFiGANGenerator(**KW)
+    init_random_weights(gen, torch.Generator().manual_seed(0))
+    first = gen.packed_mrf(0, torch.float32, "cpu")
+    assert isinstance(first, PackedStage)
+    assert gen.packed_mrf(0, torch.float32, "cpu") is first  # cached
+    assert gen.packed_mrf(1, torch.float32, "cpu") is not first  # per stage
+
+    def stage0():
+        return [b.kernel_params() for b in gen.resblocks[:3]]
+
+    # a reload of weights is seen
+    other = HiFiGANGenerator(**KW)
+    init_random_weights(other, torch.Generator().manual_seed(1))
+    gen.load_state_dict(other.state_dict())
+    reloaded = gen.packed_mrf(0, torch.float32, "cpu")
+    assert reloaded is not first
+    for want, got in zip(stage0(), unpack_stage_weights(reloaded)):
+        for name in want:
+            assert torch.equal(got[name], want[name].detach()), name
+    assert gen.packed_mrf(0, torch.float32, "cpu") is reloaded
+
+    # an in-place update (an optimizer step) is seen
+    with torch.no_grad():
+        gen.resblocks[1].convs2[2].bias.add_(1.0)
+    updated = gen.packed_mrf(0, torch.float32, "cpu")
+    assert updated is not reloaded
+    assert torch.equal(updated.bias[11], reloaded.bias[11] + 1.0)  # resblock 1, unit 2, conv2
+
+    # .to(bf16): a pack per dtype, from the converted weights
+    gen.to(torch.bfloat16)
+    packed = gen.packed_mrf(0, torch.bfloat16, "cpu")
+    assert packed.weight.dtype == torch.bfloat16
+    for want, got in zip(stage0(), unpack_stage_weights(packed)):
+        for name in want:
+            assert torch.equal(got[name], want[name].detach()), name
+
+
+def test_generator_cpu_forward_takes_the_plain_path():
+    """On the CPU the generator packs nothing (the plain path needs no pack)
+    and the wrapper ignores `packed`."""
+    gen = HiFiGANGenerator(**KW)
+    init_random_weights(gen, torch.Generator().manual_seed(2))
+    mel = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 20, 8)).astype(np.float32))
+    with torch.no_grad():
+        gen(mel)
+    assert gen._mrf_packed == {}
+    x = torch.randn(1, 30, 32, generator=torch.Generator().manual_seed(3))
+    blocks = _blocks(32, 4)
+    packed = pack_stage_weights(blocks, KS, 3, torch.float32, "cpu")
+    assert torch.equal(fused_mrf_stage(x, blocks, KS, DS, packed),
+                       fused_mrf_stage(x, blocks, KS, DS))
