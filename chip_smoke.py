@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
    (sm_90a), all at once, print ptxas' register / shared-memory / spill report,
    and count the tensor-core instructions (HMMA, HGMMA) of every kernel entry
-   point in the SASS (`cuobjdump -sass`): the bf16 K1 and K4 must have some;
+   point in the SASS (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one
+   per Dh in 16/32/64/128) and K4 (C = 32, 64) must have some;
 3. K1 (flash-attention forward) against its plain PyTorch version:
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
@@ -22,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
 5. K2/K3 (flash-attention dQ and dK/dV) against their plain versions at the
    K1 shapes, with the cotangent zero at padded query rows; times of the
    kernels, the plain versions, the backward of masked SDPA (K2 + K3
-   together, a yardstick the port never calls) and the bound;
+   together, a yardstick the port never calls) and the bound, by CUDA events
+   and, for the kernels and SDPA's backward, as device time from a
+   torch.profiler window (events time the host at these sizes);
 6. the inference path: flagship FastSpeech2 (~35M parameters, seeded random
    weights, duration bias ln 5) + HiFi-GAN V1 through `synthesize_batch` ->
    `vocoder_infer` at B=16, L=128, T_mel=640, in bfloat16 and in float32,
@@ -38,7 +41,7 @@ Phases (any failure exits non-zero; nothing is caught):
    per step, steps/s in float32 and bf16 autocast on both paths, and 20
    bf16-autocast steps against float32;
 8. a torch.profiler window over 3 kernel-path train steps per dtype: the
-   device's idle share, K1-K3's and the optimizer's device time;
+   device's idle share, K1's, K2's, K3's and the optimizer's device time;
 9. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
    and `cli.evaluate` on the saved step;
@@ -57,8 +60,11 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
   4 ulps at magnitudes 4-8); a run from a later row: bit for bit.
 - K2/K3 float32: dQ (at valid rows), dK, dV within 5e-3 (masg_tpu's flash-
   gradient bar; sums in another order give ~1e-6); bfloat16: atol = rtol =
-  1e-2 (both sides round the same float32 sums to bfloat16, one ulp at
-  |grad| up to 4); dK and dV exactly 0 at keys >= len; no NaN.
+  1e-2 (both sides round float32 sums to bfloat16, one ulp at |grad| up to
+  4; the kernels also round p and ds to bfloat16 as the operands of the
+  tensor-core products, 2^-9 relative per term, which
+  tests/test_torch_port_flash_bwd.py holds to the same bar on the CPU); dK
+  and dV exactly 0 at keys >= len; no NaN.
 - main path float32: duration_rounded and mel_len identical, postnet_mel
   within 2e-4 (masg_tpu's flash-vs-XLA model bar), int16 wavs within 2 LSB.
 - train step float32: losses within 1e-5 relative, every gradient within
@@ -131,6 +137,27 @@ def cuda_ms(fn, iters, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters, match=None):
+    """Mean device time of fn() in ms, from a torch.profiler window over
+    `iters` calls after one warm-up: the summed durations of the device
+    kernels whose name contains `match` (every kernel when None), so the
+    host's time between launches is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and (match is None or match in e.name)]
+    assert kern, f"the profiler saw no device kernel matching {match!r}"
+    return sum(e.time_range.end - e.time_range.start for e in kern) / iters / 1e3
 
 
 def bound(ops, nbytes, dtype_name):
@@ -213,7 +240,7 @@ def _template_int(mangled):
 def sass_mma_counts(nvcc, libs):
     """Count the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per
     kernel entry point in each built library's SASS (`cuobjdump -sass`, which
-    lies beside nvcc); fail unless every bf16 entry of K1 and K4 has some."""
+    lies beside nvcc); fail unless every bf16 entry of K1-K4 has some."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -235,7 +262,8 @@ def sass_mma_counts(nvcc, libs):
                 counts[(lib, entry)][0] += 1
     for (lib, entry), (hmma, hgmma) in sorted(counts.items()):
         print(f"[build] {lib}: {entry}: {hmma} HMMA, {hgmma} HGMMA")
-    for base, want in (("flash_fwd_bf16_kernel", 4), ("mrf_bf16_kernel", 2)):
+    for base, want in (("flash_fwd_bf16_kernel", 4), ("flash_dq_bf16_kernel", 4),
+                       ("flash_dkv_bf16_kernel", 4), ("mrf_bf16_kernel", 2)):
         found = [(e, sum(c)) for (_, e), c in counts.items() if e.startswith(base + "<")]
         assert len(found) == want, (base, found)
         assert all(n > 0 for _, n in found), f"no tensor-core instruction in {found}"
@@ -658,8 +686,10 @@ def bwd_inputs(t, dtype, lens, gen):
 
 def sdpa_bwd_ms(q, k, v, do, lens, t):
     """The library yardstick of K2 + K3 (the port never calls it): the
-    backward of masked scaled_dot_product_attention, timed as forward plus
-    torch.autograd.grad minus the forward alone."""
+    backward of masked scaled_dot_product_attention, as (CUDA events: forward
+    plus torch.autograd.grad minus the forward alone; device time of the
+    backward alone, from a profiler window of torch.autograd.grad calls on
+    one retained forward)."""
     import torch
 
     mask = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
@@ -671,7 +701,9 @@ def sdpa_bwd_ms(q, k, v, do, lens, t):
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qr, kr, vr), do)
 
-    return cuda_ms(fwd_bwd, 10) - cuda_ms(fwd, 10)
+    out = fwd()
+    dev = device_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 10)
+    return cuda_ms(fwd_bwd, 10) - cuda_ms(fwd, 10), dev
 
 
 def bwd_errors(q, k, v, do, lse, delta, lens, valid, dtype):
@@ -722,16 +754,19 @@ def check_flash_bwd():
             a = (q, k, v, do, lse, delta, lens)
             ms = (cuda_ms(lambda: flash_attention_dq(*a), 10),
                   cuda_ms(lambda: flash_attention_dkv(*a), 10))
+            dev = (device_ms(lambda: flash_attention_dq(*a), 20, "flash_dq"),
+                   device_ms(lambda: flash_attention_dkv(*a), 20, "flash_dkv"))
             plain = (cuda_ms(lambda: flash_attention_dq_plain(*a), 3),
                      cuda_ms(lambda: flash_attention_dkv_plain(*a), 3))
-            lib = sdpa_bwd_ms(q, k, v, do, lens, t)
+            lib, lib_dev = sdpa_bwd_ms(q, k, v, do, lens, t)
             bounds = [bound(*w, dname) for w in flash_bwd_work(lens.tolist(), t,
                                                                q.element_size())]
             print(f"[K2/K3] {dname} T={t}: max err dQ {errs[0]:.3g} dK {errs[1]:.3g} "
                   f"dV {errs[2]:.3g}, dK/dV exactly 0 past len; K2 {ms[0]:.4f} ms "
-                  f"(plain {plain[0]:.4f}, bound {bounds[0][0]:.4f} {bounds[0][1]}), "
-                  f"K3 {ms[1]:.4f} ms (plain {plain[1]:.4f}, bound {bounds[1][0]:.4f} "
-                  f"{bounds[1][1]}), sdpa backward {lib:.4f} ms")
+                  f"(device {dev[0]:.4f}, plain {plain[0]:.4f}, bound {bounds[0][0]:.4f} "
+                  f"{bounds[0][1]}), K3 {ms[1]:.4f} ms (device {dev[1]:.4f}, plain "
+                  f"{plain[1]:.4f}, bound {bounds[1][0]:.4f} {bounds[1][1]}), sdpa backward "
+                  f"{lib:.4f} ms (device {lib_dev:.4f})")
 
 
 def train_state(cfg, use_flash, seed=0):
@@ -862,7 +897,8 @@ def _union_us(intervals):
 def profile_train_step(train, smi):
     """Phase: a torch.profiler window of 3 kernel-path train steps (after 2
     warm-ups) per dtype: the device's busy and idle share of the window's wall
-    time, device ops per step, K1-K3's device time, the device time inside the
+    time, device ops per step, K1's, K2's and K3's device time (by kernel
+    name), the device time inside the
     optimizer step, and the heaviest device kernels. Then 5 unprofiled steps
     of the same state: the idle share of their median step, taking the busy
     time the profiler saw as the device time of a step."""
@@ -897,10 +933,13 @@ def profile_train_step(train, smi):
         by_name = {}
         for e in kern:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
-        flash = sum(t for name, t in by_name.items() if "flash_" in name)
+        flash = {kn: sum(t for name, t in by_name.items() if match in name) / n / 1e3
+                 for kn, match in (("K1", "flash_fwd"), ("K2", "flash_dq"),
+                                   ("K3", "flash_dkv"))}
         print(f"[profile] {dname} kernel path: wall {wall_us / n / 1e3:.1f} ms/step, device "
               f"busy {busy / n / 1e3:.1f} ms/step ({100 * (1 - busy / wall_us):.1f} % idle), "
-              f"{len(kern) // n} device ops/step; K1-K3 {flash / n / 1e3:.2f} ms/step; "
+              f"{len(kern) // n} device ops/step; K1 {flash['K1']:.3f}, K2 {flash['K2']:.3f}, "
+              f"K3 {flash['K3']:.3f} ms/step; "
               f"optimizer step {opt_busy / n / 1e3:.2f} ms/step busy within "
               f"{sum(b - a for a, b in opt) / n / 1e3:.2f} ms/step; on {smi}")
         for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
@@ -974,7 +1013,8 @@ def train_kernel_times(train, smi):
     """K1-K3 at the exact inputs the train step gave them: per step, 4
     encoder calls (T=L, src lengths) + 6 decoder calls (T=T_mel, mel lengths),
     in float32 and bfloat16; prints their share of a step. Returns the
-    kernels-line entries of K2 and K3 (bfloat16)."""
+    kernels-line entries of K2 and K3 (bfloat16), with their device time
+    per step (profiler) beside the CUDA-event time."""
     import torch
 
     from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
@@ -985,9 +1025,9 @@ def train_kernel_times(train, smi):
     batch = train["batch"]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        acc = {n: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "ops": 0.0, "bytes": 0.0}
-               for n in ("K2", "K3")}
-        k1_ms = library = 0.0
+        acc = {n: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "err": 0.0, "ops": 0.0,
+                   "bytes": 0.0} for n in ("K2", "K3")}
+        k1_ms = library = library_dev = 0.0
         for t, lens, n_calls in ((L, batch["src_lens"], 4), (T_MEL, batch["mel_lens"], 6)):
             lens_t = torch.as_tensor(lens, device=DEVICE)
             args = bwd_inputs(t, dtype, lens_t, gen)
@@ -995,14 +1035,18 @@ def train_kernel_times(train, smi):
             errs = bwd_errors(*args[:6], lens_t, valid, dtype)
             a = (q, k, v, do, lse, delta, lens_t)
             k1_ms += n_calls * cuda_ms(lambda: flash_attention(q, k, v, lens_t), 10)
-            for name, fn, plain, err in (
-                    ("K2", flash_attention_dq, flash_attention_dq_plain, errs[0]),
-                    ("K3", flash_attention_dkv, flash_attention_dkv_plain, max(errs[1:]))):
+            for name, fn, plain, err, match in (
+                    ("K2", flash_attention_dq, flash_attention_dq_plain, errs[0], "flash_dq"),
+                    ("K3", flash_attention_dkv, flash_attention_dkv_plain, max(errs[1:]),
+                     "flash_dkv")):
                 e = acc[name]
                 e["err"] = max(e["err"], err)
                 e["ms"] += n_calls * cuda_ms(lambda: fn(*a), 10)
+                e["device_ms"] += n_calls * device_ms(lambda: fn(*a), 20, match)
                 e["plain_ms"] += n_calls * cuda_ms(lambda: plain(*a), 3)
-            library += n_calls * sdpa_bwd_ms(q, k, v, do, lens_t, t)
+            lib, lib_dev = sdpa_bwd_ms(q, k, v, do, lens_t, t)
+            library += n_calls * lib
+            library_dev += n_calls * lib_dev
             for name, (ops, nbytes) in zip(("K2", "K3"),
                                            flash_bwd_work(list(lens), t, q.element_size())):
                 acc[name]["ops"] += n_calls * ops
@@ -1012,7 +1056,10 @@ def train_kernel_times(train, smi):
         print(f"[train] {dname} kernel path: K1 {k1_ms:.3f} + K2 {acc['K2']['ms']:.3f} + "
               f"K3 {acc['K3']['ms']:.3f} = {total:.3f} ms per step (CUDA events), "
               f"{100 * total / step_ms:.1f} % of the {step_ms:.1f} ms step; sdpa backward "
-              f"at the same inputs {library:.3f} ms, on {smi}")
+              f"at the same inputs {library:.3f} ms; device time K2 "
+              f"{acc['K2']['device_ms']:.3f} + K3 {acc['K3']['device_ms']:.3f} = "
+              f"{acc['K2']['device_ms'] + acc['K3']['device_ms']:.3f} ms per step against "
+              f"the sdpa backward's {library_dev:.3f} ms, on {smi}")
     entries = []
     for name, fname, line in (("K2", "flash_attention_dq (K2)", 171),
                               ("K3", "flash_attention_dkv (K3)", 216)):
@@ -1024,12 +1071,14 @@ def train_kernel_times(train, smi):
             "launches": train["counts"][name], "max_abs_err": e["err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             # one backward of masked SDPA computes dQ, dK and dV: K2 + K3 together
-            "library_ms": library})
+            "library_ms": library, "device_ms": e["device_ms"],
+            "library_device_ms": library_dev})
     for e in entries:
         print(f"[kernels] {e['name']}: per bfloat16 train step ({e['launches']} launches) "
-              f"kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library (sdpa "
-              f"backward, K2 + K3) {e['library_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']})")
+              f"kernel {e['ms']:.3f} ms (device {e['device_ms']:.3f} ms), plain "
+              f"{e['plain_ms']:.3f} ms, library (sdpa backward, K2 + K3) "
+              f"{e['library_ms']:.3f} ms (device {e['library_device_ms']:.3f} ms), bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     return entries
 
 

@@ -1,6 +1,7 @@
-// Tensor-core helpers shared by the bf16 kernels (K1 in flash_fwd.cu, K4 in
-// fused_mrf.cu): cp.async, ldmatrix, mma.sync m16n8k16 (bf16 in, f32
-// accumulate) and the XOR swizzle that keeps ldmatrix free of bank conflicts.
+// Tensor-core helpers shared by the bf16 kernels (K1 in flash_fwd.cu, K2 and
+// K3 in flash_bwd.cu, K4 in fused_mrf.cu): cp.async, ldmatrix, mma.sync
+// m16n8k16 (bf16 in, f32 accumulate) and the XOR swizzle that keeps ldmatrix
+// free of bank conflicts.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
 // q = lane % 4:

@@ -8,6 +8,9 @@
   masg_tpu's `_make_flash_core` custom VJP, runs kernels K2 (`flash_attention_dq`)
   and K3 (`flash_attention_dkv`, both `csrc/flash_bwd.cu`, replacing
   `_flash_dq_kernel` and `_flash_dkv_kernel`) on K1's saved row log-sum-exp.
+  In bf16 all three run every product on the tensor cores (`mma.sync`; K2
+  and K3 round p and ds to bf16 only as product operands, sums stay f32);
+  in f32 they are SIMT kernels on the CUDA cores, which keep masg_tpu's bars.
   On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
   it runs its `*_plain` version, the same function in plain PyTorch.
 

@@ -153,3 +153,50 @@ def test_bf16_flash_forward_ragged(dh):
     # a length-1 row attends to its one key: o = v[0] exactly
     assert torch.equal(o[1], v[1, :, :1].expand_as(o[1]))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bf16_flash_backward_ragged(dh):
+    """The tensor-core K2/K3 at a ragged T (not a multiple of their 64-row
+    tiles) with lengths 0, 1, T and one in between: dQ (at valid rows), dK and
+    dV at atol = rtol = 1e-2 (p and ds are rounded to bf16 for the products),
+    dK/dV exactly 0 at keys >= len and for the length-0 row, no NaN, the same
+    bits from two launches, and the autograd path launching K1-K3 once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dkv_plain, flash_attention_dq,
+                                              flash_attention_dq_plain)
+
+    gen = torch.Generator().manual_seed(100 + dh)
+    t = 200
+    q, k, v = (torch.randn(4, 2, t, dh, generator=gen).cuda().bfloat16() for _ in range(3))
+    lens = torch.tensor([0, 1, t, 77], device="cuda")
+    valid = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, :, None]
+    do = (torch.randn(4, 2, t, dh, generator=gen).cuda() * valid).bfloat16()
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, lens)
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkv(*args)
+    dq_ref = flash_attention_dq_plain(*args)
+    dk_ref, dv_ref = flash_attention_dkv_plain(*args)
+    for g in (dq, dk, dv):
+        assert g.dtype == torch.bfloat16 and not torch.isnan(g.float()).any()
+    torch.testing.assert_close((dq * valid).float(), (dq_ref * valid).float(), atol=1e-2,
+                               rtol=1e-2)
+    for got, want in ((dk, dk_ref), (dv, dv_ref)):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+        assert (got * ~valid == 0).all() and (got[0] == 0).all()
+    assert torch.equal(flash_attention_dq(*args), dq)
+    assert all(torch.equal(a, b) for a, b in zip(flash_attention_dkv(*args), (dk, dv)))
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    counts = (flash_attention.launches, flash_attention_dq.launches,
+              flash_attention_dkv.launches)
+    flash_attention(qg, kg, vg, lens).backward(do)
+    assert (flash_attention.launches, flash_attention_dq.launches,
+            flash_attention_dkv.launches) == tuple(c + 1 for c in counts)
+    assert torch.equal(qg.grad, dq) and torch.equal(kg.grad, dk) and torch.equal(vg.grad, dv)
+    torch.cuda.synchronize()

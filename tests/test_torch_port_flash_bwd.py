@@ -85,3 +85,52 @@ def test_gradcheck_f64(lengths):
     args = tuple(torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     assert torch.autograd.gradcheck(lambda q, k, v: flash_attention(q, k, v, lens) * mask,
                                     args)
+
+
+def _bf16_kernel_rounding(q, k, v, do, lse, delta, lengths):
+    """What the bf16 K2/K3 compute: p and ds from f32 sums of the bf16
+    inputs, rounded to bf16 only as the operands of the p^T.do, ds.k and
+    ds^T.q products, whose sums stay f32; K3 drops query rows >= length.
+    Returns (dq, dk, dv) in bf16."""
+    f32, t = torch.float32, q.shape[2]
+    qf, kf, vf, dof = (x.to(f32) for x in (q, k, v, do))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    valid = torch.arange(t)[None, :] < lengths[:, None]
+    live = torch.isfinite(lse)
+    s = scale * (qf @ kf.transpose(-1, -2))
+    p = torch.exp(s - torch.where(live, lse, torch.zeros_like(lse))[..., None])
+    p = torch.where(valid[:, None, None, :] & live[..., None], p, torch.zeros_like(p))
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    rows = valid[:, None, :, None]
+    p_k, ds_k = (torch.where(rows, x, torch.zeros_like(x)).to(torch.bfloat16).to(f32)
+                 for x in (p, ds))
+    dq = scale * (ds.to(torch.bfloat16).to(f32) @ kf)
+    dk = scale * (ds_k.transpose(-1, -2) @ qf)
+    dv = p_k.transpose(-1, -2) @ dof
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def test_bf16_operand_rounding_meets_the_kernel_bar():
+    """The bf16 K2/K3 round p and ds to bf16 for the tensor cores; at the
+    decoder's shape (T = 640, Dh = 128) with lengths 0, 1, T and one between,
+    that rounding stays within the card's bar (atol = rtol = 1e-2) of the
+    plain versions, which round only their f32 results."""
+    lengths = [0, 1, 640, 333]
+    q, k, v, do, valid = (torch.from_numpy(a) for a in _inputs(11, lengths, 2, 640, 128))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    lens = torch.tensor(lengths)
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, lens)
+    dq, dk, dv = _bf16_kernel_rounding(*args)
+    dq_ref = flash_attention_dq_plain(*args)
+    dk_ref, dv_ref = flash_attention_dkv_plain(*args)
+    pairs = ((dq * valid, dq_ref * valid), (dk, dk_ref), (dv, dv_ref))
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+    print(f"[parity] bf16 operand rounding of K2/K3 vs plain, T=640, Dh=128: max abs err "
+          f"dQ {errs[0]:.3g} dK {errs[1]:.3g} dV {errs[2]:.3g} (bar atol = rtol = 1e-2)")
+    for got, want in pairs:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    for g in (dk, dv):
+        assert (g * ~valid == 0).all() and (g[0] == 0).all()
+    assert max(errs) > 0  # the rounding is emulated, not the plain path again
