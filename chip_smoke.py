@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
-   (sm_90a), all at once, print ptxas' register / shared-memory / spill report,
+   (sm_90a), all at once, print ptxas' register / shared-memory / spill report
+   (0 spill bytes required of the register-tiled f32 K1 and K3 at Dh = 128),
    and count the tensor-core instructions (HMMA, HGMMA) of every kernel entry
    point in the SASS (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one
    per Dh in 16/32/64/128) and K4 (C = 32, 64) must have some;
@@ -15,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught):
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
    `scaled_dot_product_attention` (a yardstick the port never calls) and the
-   least time the card could take (bound);
+   least time the card could take (bound), the kernel's and SDPA's also as
+   device time from a torch.profiler window;
 4. K4 (fused MRF stage) against its plain version at the HiFi-GAN V1 stage
    shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16), and
    a run that starts 1037 rows later, which must give the same bits at every
@@ -45,7 +47,10 @@ Phases (any failure exits non-zero; nothing is caught):
 9. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
    and `cli.evaluate` on the saved step;
-10. one `{"kernels": [...]}` line; 11. the `{"ok": true, ...}` line, last.
+10. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+   inputs, with the float32 figures as fields (`float32_forward`: K1 per
+   float32 forward; `float32_train_step`: K1, K2, K3 per float32 train step);
+11. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -207,12 +212,41 @@ def build_kernels():
     t0 = time.time()
     paths = _build.build()
     print(f"[build] {len(_build.KERNELS)} kernel libraries built in {time.time() - t0:.1f} s")
+    report = {}
     for name, log in _build.PTXAS_LOG.items():
         for line in log.splitlines():
             if ("Compiling entry" in line or "registers" in line or "spill" in line
                     or "smem" in line):
                 print(f"[build] {name}: {line.strip()}")
+        report.update(ptxas_report(log))
+    # the register-tiled f32 K1 and K3 must not spill at the main path's Dh
+    for entry in ("flash_fwd_kernel<128,2>", "flash_fwd_kernel<128,4>",
+                  "flash_dkv_kernel<128>"):
+        regs, spill = report[entry]
+        print(f"[build] {entry}: {regs} registers, {spill} spill bytes (stores + loads)")
+        assert spill == 0, (entry, spill)
     sass_mma_counts(_build.nvcc_path(), dict(zip(_build.KERNELS, paths)))
+
+
+def ptxas_report(log):
+    """{kernel<template ints>: (registers, spill store + load bytes)} from a
+    `-Xptxas -v` log."""
+    import re
+
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = f"{_kernel_name(m.group(1))}<{_template_int(m.group(1))}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), spill)
+            entry = None
+    return out
 
 
 def _kernel_name(mangled):
@@ -231,10 +265,11 @@ def _kernel_name(mangled):
 
 
 def _template_int(mangled):
+    """The kernel's integer template arguments, comma-separated."""
     import re
 
-    m = re.search(r"kernelI\w*?Li(\d+)E", mangled)
-    return m.group(1) if m else "?"
+    m = re.search(r"kernelI((?:Li\d+E)+)", mangled)
+    return ",".join(re.findall(r"Li(\d+)E", m.group(1))) if m else "?"
 
 
 def sass_mma_counts(nvcc, libs):
@@ -300,22 +335,35 @@ def check_flash():
             else:
                 torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
                 assert lse_err <= 1e-4, (t, lse_err)
-            mask = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
-            row = {
-                "err": err, "lse_err": lse_err,
-                "ms": cuda_ms(lambda: flash_attention(q, k, v, lens), 20),
-                "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, lens), 5),
-                "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask), 20),
-            }
+            row = {"err": err, "lse_err": lse_err, **k1_times(q, k, v, lens, t)}
             row["bound_ms"], row["bound_by"] = bound(
                 *flash_work(lens.tolist(), t, q.element_size()), dname)
             out.setdefault(dname, {})[t] = row
             print(f"[K1] {dname} T={t}: max|o err| {err:.3g} max|lse err| {lse_err:.3g} "
-                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                  f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+                  f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (device "
+                  f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})")
     return out
+
+
+def k1_times(q, k, v, lens, t):
+    """K1's times at these inputs: CUDA events (kernel, plain version, masked
+    SDPA forward: a yardstick the port never calls) and device time from
+    profiler windows (kernel, SDPA forward), in ms per call."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    mask = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    return {"ms": cuda_ms(lambda: flash_attention(q, k, v, lens), 20),
+            "device_ms": device_ms(lambda: flash_attention(q, k, v, lens), 20, "flash_fwd"),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, lens), 5),
+            "library_ms": cuda_ms(sdpa, 20), "library_device_ms": device_ms(sdpa, 20)}
 
 
 def random_mrf_params(c, kernel_sizes, n_dil, gen, dtype):
@@ -589,29 +637,35 @@ def main_path_kernel_times(results):
     from masg_tpu_torch.ops.fused_mrf import (fused_mrf_stage, fused_mrf_stage_plain,
                                               pack_stage_weights)
 
-    dtype, dname = torch.bfloat16, "bfloat16"
-    res = results[dname]
     gen = torch.Generator().manual_seed(2)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-          "ops": 0.0, "bytes": 0.0}
-    for t, lens, n_calls in ((L, res["src_lens"], 4), (T_MEL, res["mel_len"], 6)):
-        q, k, v = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE, dtype)
-                   for _ in range(3))
-        lens_t = torch.as_tensor(lens, device=DEVICE)
-        o = flash_attention(q, k, v, lens_t)
-        o_ref, _ = flash_attention_plain(q, k, v, lens_t)
-        torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
-        mask = (torch.arange(t, device=DEVICE)[None, :] < lens_t[:, None])[:, None, None, :]
-        k1["err"] = max(k1["err"], (o.float() - o_ref.float()).abs().max().item())
-        k1["ms"] += n_calls * cuda_ms(lambda: flash_attention(q, k, v, lens_t), 20)
-        k1["plain_ms"] += n_calls * cuda_ms(lambda: flash_attention_plain(q, k, v, lens_t), 5)
-        k1["library_ms"] += n_calls * cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-            20)
-        ops, nbytes = flash_work(list(lens), t, q.element_size())
-        k1["ops"] += n_calls * ops
-        k1["bytes"] += n_calls * nbytes
-    k1["bound_ms"], k1["bound_by"] = bound(k1["ops"], k1["bytes"], dname)
+    k1s = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        res = results[dname]
+        k1 = {key: 0.0 for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                   "library_device_ms", "err", "ops", "bytes")}
+        for t, lens, n_calls in ((L, res["src_lens"], 4), (T_MEL, res["mel_len"], 6)):
+            q, k, v = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE, dtype)
+                       for _ in range(3))
+            lens_t = torch.as_tensor(lens, device=DEVICE)
+            o = flash_attention(q, k, v, lens_t)
+            o_ref, _ = flash_attention_plain(q, k, v, lens_t)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                assert err <= 2e-5, err
+            else:
+                torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+            k1["err"] = max(k1["err"], err)
+            for key, x in k1_times(q, k, v, lens_t, t).items():
+                k1[key] += n_calls * x
+            ops, nbytes = flash_work(list(lens), t, q.element_size())
+            k1["ops"] += n_calls * ops
+            k1["bytes"] += n_calls * nbytes
+        k1["bound_ms"], k1["bound_by"] = bound(k1["ops"], k1["bytes"], dname)
+        k1["launches"] = res["launches"]["K1"]
+        k1s[dname] = k1
+    dtype, dname = torch.bfloat16, "bfloat16"
+    k1, k1_f32 = k1s["bfloat16"], k1s["float32"]
 
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     k4 = {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "ops": 0.0, "bytes": 0.0}
@@ -631,18 +685,19 @@ def main_path_kernel_times(results):
         k4["bytes"] += nbytes
     k4["bound_ms"], k4["bound_by"] = bound(k4["ops"], k4["bytes"], dname)
 
-    launches = res["launches"]
-    launches = (launches["K1"], launches["K4"])
     entries = [
         {"name": "flash_attention_fwd (K1)", "route": "cuda",
          "source": "masg_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "masg_tpu/ops/attention.py:62", "launches": launches[0],
+         "replaces": "masg_tpu/ops/attention.py:62", "launches": k1["launches"],
          "max_abs_err": k1["err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"], "device_ms": k1["device_ms"],
+         "library_device_ms": k1["library_device_ms"],
+         "float32_forward": path_fields(k1_f32)},
         {"name": "fused_mrf_stage (K4)", "route": "cuda",
          "source": "masg_tpu_torch/csrc/fused_mrf.cu",
-         "replaces": "masg_tpu/ops/fused_mrf.py:82", "launches": launches[1],
+         "replaces": "masg_tpu/ops/fused_mrf.py:82",
+         "launches": results["bfloat16"]["launches"]["K4"],
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None},
     ]
@@ -650,7 +705,24 @@ def main_path_kernel_times(results):
         print(f"[kernels] {e['name']}: per bfloat16 main-path forward ({e['launches']} "
               f"launches) kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
               f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    print_path_fields("flash_attention_fwd (K1)", "float32 main-path forward",
+                      entries[0]["float32_forward"], "masked SDPA forward")
     return entries
+
+
+def path_fields(acc):
+    """A kernel's per-path figures as a kernels-line field."""
+    return {key: acc[key] for key in ("launches", "ms", "device_ms", "plain_ms",
+                                      "library_ms", "library_device_ms", "bound_ms",
+                                      "bound_by")} | {"max_abs_err": acc["err"]}
+
+
+def print_path_fields(name, path, f, library):
+    print(f"[kernels] {name}: per {path} ({f['launches']} launches) kernel {f['ms']:.3f} ms "
+          f"(device {f['device_ms']:.3f} ms), plain {f['plain_ms']:.3f} ms, library "
+          f"({library}) {f['library_ms']:.3f} ms (device {f['library_device_ms']:.3f} ms), "
+          f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err "
+          f"{f['max_abs_err']:.3g}")
 
 
 def flash_bwd_work(lengths, t, elem_bytes):
@@ -879,7 +951,7 @@ def train_path(smi):
     print(f"[train] 20 steps on one batch: last loss float32 {last['float32']:.4f}, "
           f"bfloat16 autocast {last['bfloat16']:.4f} (relative gap {rel:.3g}, tol 0.25)")
     assert rel < 0.25, last
-    return {"batch": batch, "counts": counts["bfloat16"], "rates": rates}
+    return {"batch": batch, "counts": counts, "rates": rates}
 
 
 def _union_us(intervals):
@@ -1013,28 +1085,35 @@ def train_kernel_times(train, smi):
     """K1-K3 at the exact inputs the train step gave them: per step, 4
     encoder calls (T=L, src lengths) + 6 decoder calls (T=T_mel, mel lengths),
     in float32 and bfloat16; prints their share of a step. Returns the
-    kernels-line entries of K2 and K3 (bfloat16), with their device time
-    per step (profiler) beside the CUDA-event time."""
+    kernels-line entries of K2 and K3 (bfloat16, with their device time per
+    step beside the CUDA-event time) and the fields of K1, K2 and K3 per
+    float32 step."""
     import torch
 
     from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
                                               flash_attention_dkv_plain, flash_attention_dq,
-                                              flash_attention_dq_plain)
+                                              flash_attention_dq_plain, flash_attention_plain)
 
     gen = torch.Generator().manual_seed(4)
     batch = train["batch"]
+    per_dtype = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        acc = {n: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "err": 0.0, "ops": 0.0,
-                   "bytes": 0.0} for n in ("K2", "K3")}
-        k1_ms = library = library_dev = 0.0
+        acc = {n: {key: 0.0 for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                         "library_device_ms", "err", "ops", "bytes")}
+               for n in ("K1", "K2", "K3")}
         for t, lens, n_calls in ((L, batch["src_lens"], 4), (T_MEL, batch["mel_lens"], 6)):
             lens_t = torch.as_tensor(lens, device=DEVICE)
             args = bwd_inputs(t, dtype, lens_t, gen)
             q, k, v, do, lse, delta, valid = args
             errs = bwd_errors(*args[:6], lens_t, valid, dtype)
             a = (q, k, v, do, lse, delta, lens_t)
-            k1_ms += n_calls * cuda_ms(lambda: flash_attention(q, k, v, lens_t), 10)
+            o_ref, _ = flash_attention_plain(q, k, v, lens_t)
+            err = (flash_attention(q, k, v, lens_t).float() - o_ref.float()).abs().max().item()
+            assert dtype != torch.float32 or err <= 2e-5, err
+            acc["K1"]["err"] = max(acc["K1"]["err"], err)
+            for key, x in k1_times(q, k, v, lens_t, t).items():
+                acc["K1"][key] += n_calls * x
             for name, fn, plain, err, match in (
                     ("K2", flash_attention_dq, flash_attention_dq_plain, errs[0], "flash_dq"),
                     ("K3", flash_attention_dkv, flash_attention_dkv_plain, max(errs[1:]),
@@ -1044,42 +1123,57 @@ def train_kernel_times(train, smi):
                 e["ms"] += n_calls * cuda_ms(lambda: fn(*a), 10)
                 e["device_ms"] += n_calls * device_ms(lambda: fn(*a), 20, match)
                 e["plain_ms"] += n_calls * cuda_ms(lambda: plain(*a), 3)
+            # one backward of masked SDPA computes dQ, dK and dV: K2 + K3 together
             lib, lib_dev = sdpa_bwd_ms(q, k, v, do, lens_t, t)
-            library += n_calls * lib
-            library_dev += n_calls * lib_dev
-            for name, (ops, nbytes) in zip(("K2", "K3"),
-                                           flash_bwd_work(list(lens), t, q.element_size())):
+            for name in ("K2", "K3"):
+                acc[name]["library_ms"] += n_calls * lib
+                acc[name]["library_device_ms"] += n_calls * lib_dev
+            works = (flash_work(list(lens), t, q.element_size()),
+                     *flash_bwd_work(list(lens), t, q.element_size()))
+            for name, (ops, nbytes) in zip(("K1", "K2", "K3"), works):
                 acc[name]["ops"] += n_calls * ops
                 acc[name]["bytes"] += n_calls * nbytes
+        for name, e in acc.items():
+            e["bound_ms"], e["bound_by"] = bound(e["ops"], e["bytes"], dname)
+            e["launches"] = train["counts"][dname][name]
+        per_dtype[dname] = acc
         step_ms = 1e3 / train["rates"][(dname, True)]
-        total = k1_ms + acc["K2"]["ms"] + acc["K3"]["ms"]
-        print(f"[train] {dname} kernel path: K1 {k1_ms:.3f} + K2 {acc['K2']['ms']:.3f} + "
-              f"K3 {acc['K3']['ms']:.3f} = {total:.3f} ms per step (CUDA events), "
-              f"{100 * total / step_ms:.1f} % of the {step_ms:.1f} ms step; sdpa backward "
-              f"at the same inputs {library:.3f} ms; device time K2 "
-              f"{acc['K2']['device_ms']:.3f} + K3 {acc['K3']['device_ms']:.3f} = "
-              f"{acc['K2']['device_ms'] + acc['K3']['device_ms']:.3f} ms per step against "
-              f"the sdpa backward's {library_dev:.3f} ms, on {smi}")
+        total = sum(acc[n]["ms"] for n in ("K1", "K2", "K3"))
+        dev = {n: acc[n]["device_ms"] for n in ("K1", "K2", "K3")}
+        print(f"[train] {dname} kernel path: K1 {acc['K1']['ms']:.3f} + K2 "
+              f"{acc['K2']['ms']:.3f} + K3 {acc['K3']['ms']:.3f} = {total:.3f} ms per step "
+              f"(CUDA events), {100 * total / step_ms:.1f} % of the {step_ms:.1f} ms step; "
+              f"device time K1 {dev['K1']:.3f} + K2 {dev['K2']:.3f} + K3 {dev['K3']:.3f} = "
+              f"{sum(dev.values()):.3f} ms per step against the sdpa forward's "
+              f"{acc['K1']['library_device_ms']:.3f} + backward's "
+              f"{acc['K2']['library_device_ms']:.3f} ms; sdpa backward by events "
+              f"{acc['K2']['library_ms']:.3f} ms; on {smi}")
+    bf, f32 = per_dtype["bfloat16"], per_dtype["float32"]
     entries = []
     for name, fname, line in (("K2", "flash_attention_dq (K2)", 171),
                               ("K3", "flash_attention_dkv (K3)", 216)):
-        e = acc[name]
-        bound_ms, bound_by = bound(e["ops"], e["bytes"], dname)
+        e = bf[name]
         entries.append({
             "name": fname, "route": "cuda", "source": "masg_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"masg_tpu/ops/attention.py:{line}",
-            "launches": train["counts"][name], "max_abs_err": e["err"], "ms": e["ms"],
-            "plain_ms": e["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            # one backward of masked SDPA computes dQ, dK and dV: K2 + K3 together
-            "library_ms": library, "device_ms": e["device_ms"],
-            "library_device_ms": library_dev})
+            "launches": e["launches"], "max_abs_err": e["err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": e["library_ms"], "device_ms": e["device_ms"],
+            "library_device_ms": e["library_device_ms"],
+            "float32_train_step": path_fields(f32[name])})
     for e in entries:
         print(f"[kernels] {e['name']}: per bfloat16 train step ({e['launches']} launches) "
               f"kernel {e['ms']:.3f} ms (device {e['device_ms']:.3f} ms), plain "
               f"{e['plain_ms']:.3f} ms, library (sdpa backward, K2 + K3) "
               f"{e['library_ms']:.3f} ms (device {e['library_device_ms']:.3f} ms), bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
-    return entries
+    k1_train = path_fields(f32["K1"])
+    print_path_fields("flash_attention_fwd (K1)", "float32 train step", k1_train,
+                      "masked SDPA forward")
+    for e in entries:
+        print_path_fields(e["name"], "float32 train step", e["float32_train_step"],
+                          "masked SDPA backward, K2 + K3")
+    return entries, k1_train
 
 
 def main() -> int:
@@ -1110,7 +1204,9 @@ def main() -> int:
     train = train_path(smi)
     profile_train_step(train, smi)
     trainer_path()
-    entries[1:1] = train_kernel_times(train, smi)
+    train_entries, k1_train = train_kernel_times(train, smi)
+    entries[0]["float32_train_step"] = k1_train
+    entries[1:1] = train_entries
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

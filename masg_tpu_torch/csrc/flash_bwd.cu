@@ -59,24 +59,38 @@
 // NaN. Shared memory at Dh = 128: 96 KB (K2) and 97 KB (K3), two blocks per SM.
 // Like K1 they stay on mma.sync; wgmma + TMA is not queued for them.
 //
-// f32 (flash_dq_kernel, flash_dkv_kernel): the first, SIMT kernels, kept so
-// the f32 path meets masg_tpu's 5e-3 bar with sums ~1e-6 off (TF32 would
-// lose three digits). 256 threads, 4 per resident row; K2: one block per
-// (b*h, 64-row query tile), the query tile (pre-scaled by 1/sqrt(Dh)) and its
-// do rows in shared memory, 32-row K and V tiles staged one at a time, the
-// 64 x 32 ds tile through shared memory, each thread accumulating Dh/4
-// columns of dQ in registers. K3: one block per (b*h, 64-row key tile), K and
-// V in shared memory, 32-row q / do tiles (with their LSE and delta) staged, p
-// and ds through shared memory, Dh/4 columns of dK and dV per thread. Rows
-// are padded by one float (no bank conflicts). f32 FMAs on the CUDA cores,
-// bound by one shared-memory load per FMA; the register-tiled redesign is
-// queued. Shared memory at Dh = 128: ~107 KB (K2) and ~116 KB (K3).
+// f32 (flash_dq_kernel, flash_dkv_kernel): f32 FMAs on the CUDA cores, so
+// that the f32 path meets masg_tpu's 5e-3 bar with sums ~1e-6 off (TF32
+// would lose three digits).
+//   K2 (flash_dq_kernel, the first SIMT kernel): 256 threads, 4 per query
+//   row; one block per (b*h, 64-row query tile), the query tile (pre-scaled
+//   by 1/sqrt(Dh)) and its do rows in shared memory, 32-row K and V tiles
+//   staged one at a time, the 64 x 32 ds tile through shared memory, Dh/4
+//   columns of dQ per thread; rows padded by one float. Bound by one
+//   shared-memory load per FMA (~107 KB of shared memory at Dh = 128); its
+//   register-tiled redesign is queued.
+//   K3 (flash_dkv_kernel<DH>, register-tiled): one block of 8 warps per
+//   (b*h, 64-key tile), scale * K and V resident in shared memory; 32-query
+//   tiles of q and do (rows >= T zero-filled) double-buffered by cp.async in
+//   16-byte chunks, their LSE and delta staged beside them. Per query tile,
+//   warps 0-3 build s^T and warps 4-7 dp^T, each thread a 4-key x 4-query
+//   micro-tile over d in steps of 4 from float4 loads (8 loads per 64 FMAs);
+//   p^T = exp(s^T - LSE) and dp^T - delta go to shared memory as [query][key],
+//   chunks of 4 keys swizzled by the query, so one load gives four keys. Then
+//   every thread owns a 4-key x Dh/16-column micro-tile of dK and of dV (64
+//   accumulators at Dh = 128) and adds p^T do and (p^T * (dp^T - delta)) q
+//   per query: 6 loads per 64 FMAs. K, V, q and do tiles are XOR-swizzled
+//   (f32_util.cuh) so that no 16-byte load has a bank conflict.
+//   ~145 KB of shared memory at Dh = 128, so one block per SM: two would
+//   need <= 113 KB, i.e. 16-query tiles, and <= 128 registers a thread,
+//   which the 64 accumulators and the score micro-tile do not leave.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_util.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -85,21 +99,14 @@ using bf16 = __nv_bfloat16;
 
 // ---- f32: CUDA cores ------------------------------------------------------
 
-constexpr int BR = 64;   // resident rows per block (query rows in K2, key rows in K3)
-constexpr int BS = 32;   // rows per staged tile
-constexpr int NT = 256;  // threads per block: 4 per resident row
+constexpr int BR = 64;   // K2: query rows per block
+constexpr int BS = 32;   // K2: key rows per staged tile
+constexpr int NT = 256;  // K2: threads per block, 4 per query row
 
 template <int DH>
 constexpr size_t dq_smem_bytes() {
   // Qs, dOs (BR x DH+1); Ks, Vs (BS x DH+1); DSs (BR x BS+1)
   return sizeof(float) * (2 * BR * (DH + 1) + 2 * BS * (DH + 1) + BR * (BS + 1));
-}
-
-template <int DH>
-constexpr size_t dkv_smem_bytes() {
-  // Ks, Vs (BR x DH+1); Qs, dOs (BS x DH+1); Ps, DSs (BR x BS+1); lse, delta (BS)
-  return sizeof(float) *
-         (2 * BR * (DH + 1) + 2 * BS * (DH + 1) + 2 * BR * (BS + 1) + 2 * BS);
 }
 
 // Copies rows [r0, r0 + n) of a (t_len, DH) slab into shared memory (row stride
@@ -201,107 +208,190 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int KT = 64;    // K3: key rows per block
+constexpr int QT = 32;    // K3: query rows per staged tile
+constexpr int KNT = 256;  // K3: threads per block
+
 template <int DH>
-__global__ void __launch_bounds__(NT)
+constexpr size_t dkv_smem_bytes() {
+  // K, V; Q x 2, dO x 2; p^T, dp^T - delta; LSE x 2, delta x 2
+  return sizeof(float) * (2 * KT * DH + 4 * QT * DH + 2 * QT * KT + 4 * QT);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(KNT, 1)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const int* __restrict__ lens, float* __restrict__ dk,
                  float* __restrict__ dv, int heads, int t_len, float scale) {
-  constexpr int S = DH + 1;
-  constexpr int PS = BS + 1;
-  constexpr int NJ = DH / 4;  // dK / dV columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BR * S;
-  float* Qs = Vs + BR * S;
-  float* dOs = Qs + BS * S;
-  float* Ps = dOs + BS * S;
-  float* DSs = Ps + BR * PS;
-  float* Ls = DSs + BR * PS;
-  float* Ds = Ls + BS;
+  constexpr int NCH = DH / 4;                  // 16-byte chunks per row
+  constexpr int VW = DH >= 64 ? 4 : DH / 16;   // dK / dV columns per vector
+  constexpr int NJ = DH / (16 * VW);           // dK / dV vectors per key and thread
+  using SwK = f32::Swz<DH, 2>;  // K, V: read 4 rows apart (keys 4 kg + i)
+  using SwQ = f32::Swz<DH>;     // q, do: read 8 rows apart (queries qg + 8 j)
+  constexpr int QJ = QT / 8;    // queries per thread in the score micro-tile
+  static_assert(KNT == 256 && KT == 64 && QT % 8 == 0 && 2 * QT <= KNT,
+                "16 key groups x 8 query groups per half block; one thread per staged stat");
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;              // scale * k
+  float* Vs = Ks + KT * DH;
+  float* Qs = Vs + KT * DH;      // two buffers
+  float* dOs = Qs + 2 * QT * DH;  // two buffers
+  float* Ps = dOs + 2 * QT * DH;  // p^T as [query][key], chunk c of query r at c ^ (r & 7)
+  float* DPs = Ps + QT * KT;      // dp^T - delta, the same layout
+  float* Ls = DPs + QT * KT;      // two buffers
+  float* Ds = Ls + 2 * QT;        // two buffers
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BR;
   const int tid = threadIdx.x;
-  const int r = tid >> 2;  // key row within the tile
-  const int q4 = tid & 3;  // quarter of that row
+  const int bh = blockIdx.y, k0 = blockIdx.x * KT;
   const int valid = min(max(lens[bh / heads], 0), t_len);
   const size_t base = (size_t)bh * t_len * DH;
-  const int key = k0 + r;
 
-  float gk[NJ], gv[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) gk[j] = gv[j] = 0.f;
+  // q and do rows [r0, r0 + QT) into buffer `buf` by cp.async (rows >= T read
+  // as 0), with their LSE and delta; a query row at or past the length (or
+  // dead) contributes nothing (see the header): LSE = +inf gives p = 0
+  auto stage_q = [&](int buf, int r0) {
+    for (int i = tid; i < QT * NCH; i += KNT) {
+      const int r = i / NCH, d = 4 * (i % NCH), row = r0 + r;
+      const bool ok = row < t_len;
+      const size_t src = base + (size_t)(ok ? row : 0) * DH + d;
+      mma::cp_async16(mma::smem_u32(Qs + buf * QT * DH + SwQ::off(r, d)), q + src, ok);
+      mma::cp_async16(mma::smem_u32(dOs + buf * QT * DH + SwQ::off(r, d)), dout + src, ok);
+    }
+    const int i = tid % QT, row = r0 + i;
+    const bool on = row < valid;
+    if (tid < QT) {
+      const float l = on ? lse[(size_t)bh * t_len + row] : 0.f;
+      Ls[buf * QT + i] = on && isfinite(l) ? l : INFINITY;
+    } else if (tid < 2 * QT) {
+      Ds[buf * QT + i] = on ? delta[(size_t)bh * t_len + row] : 0.f;
+    }
+  };
 
   // a key tile at or past the length sees no query: it writes zeros below
-  const int n_qb = k0 >= valid ? 0 : (valid + BS - 1) / BS;
+  const int n_qb = k0 >= valid ? 0 : (valid + QT - 1) / QT;
   if (n_qb > 0) {
-    stage<DH, BR>(Ks, k + base, k0, t_len, scale);  // holds scale * k
-    stage<DH, BR>(Vs, v + base, k0, t_len, 1.f);
+    stage_q(0, 0);
+    mma::cp_async_commit();
+    for (int i = tid; i < KT * NCH; i += KNT) {  // once per block, through registers
+      const int r = i / NCH, d = 4 * (i % NCH), row = k0 + r;
+      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < t_len) {
+        f32::ldv<4>(kx, k + base + (size_t)row * DH + d);
+        f32::ldv<4>(vx, v + base + (size_t)row * DH + d);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kx[e] *= scale;
+      f32::stv<4>(Ks + SwK::off(r, d), kx);
+      f32::stv<4>(Vs + SwK::off(r, d), vx);
+    }
   }
+
+  // the dK / dV micro-tile: keys 4 kd + i, columns (cg + 16 jj) * VW + e
+  const int kd = tid >> 4, cg = tid & 15;
+  float gk[4][NJ * VW], gv[4][NJ * VW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NJ * VW; ++c) gk[i][c] = gv[i][c] = 0.f;
+
   for (int qb = 0; qb < n_qb; ++qb) {
-    __syncthreads();  // the previous tile's readers are done; K and V are visible
-    const int r0 = qb * BS;
-    stage<DH, BS>(Qs, q + base, r0, t_len, 1.f);
-    stage<DH, BS>(dOs, dout + base, r0, t_len, 1.f);
-    if (tid < BS) {
-      const int row = r0 + tid;
-      // query rows at or past the length contribute nothing (see the header)
-      Ls[tid] = row < valid ? lse[(size_t)bh * t_len + row] : -INFINITY;
-      Ds[tid] = row < valid ? delta[(size_t)bh * t_len + row] : 0.f;
+    const int cur = qb & 1;
+    if (qb + 1 < n_qb) {
+      stage_q(cur ^ 1, (qb + 1) * QT);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Qc = Qs + cur * QT * DH;
+    const float* dOc = dOs + cur * QT * DH;
+
+    {
+      // warps 0-3: s^T = (scale k) q^T -> p^T; warps 4-7: dp^T = v do^T -> dp^T - delta.
+      // Thread t: keys 4 kg + i (i < 4), queries qg + 8 j (j < QJ) of the tile.
+      const bool is_dp = tid >= KNT / 2;
+      const int t = tid & (KNT / 2 - 1), kg = t >> 3, qg = t & 7;
+      const float* A = is_dp ? Vs : Ks;
+      const float* Bt = is_dp ? dOc : Qc;
+      float acc[4][QJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < QJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < DH; d += 4) {
+        float a[4][4], b[QJ][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f32::ldv<4>(a[i], A + SwK::off(4 * kg + i, d));
+#pragma unroll
+        for (int j = 0; j < QJ; ++j) f32::ldv<4>(b[j], Bt + SwQ::off(qg + 8 * j, d));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < QJ; ++j) acc[i][j] = fmaf(a[i][e], b[j][e], acc[i][j]);
+      }
+      const float* stat = (is_dp ? Ds : Ls) + cur * QT;
+      float* dst = is_dp ? DPs : Ps;
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) {
+        const int c = qg + 8 * j;
+        const float x = stat[c];
+        float out[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[i] = is_dp ? acc[i][j] - x
+                         : (k0 + 4 * kg + i < valid ? expf(acc[i][j] - x) : 0.f);
+        f32::stv<4>(dst + c * KT + ((kg ^ qg) << 2), out);  // (qg + 8 j) & 7 = qg
+      }
     }
     __syncthreads();
 
-    float s[8], dp[8];
+    // dV += p^T do, dK += (p^T * (dp^T - delta)) q, one query at a time
+#pragma unroll 2
+    for (int c = 0; c < QT; ++c) {
+      float p[4], dpd[4];
+      f32::ldv<4>(p, Ps + c * KT + ((kd ^ (c & 7)) << 2));
+      f32::ldv<4>(dpd, DPs + c * KT + ((kd ^ (c & 7)) << 2));
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) s[jj] = dp[jj] = 0.f;
-    const float* krow = Ks + r * S;
-    const float* vrow = Vs + r * S;
-    const float* qcol = Qs + (q4 * 8) * S;
-    const float* ocol = dOs + (q4 * 8) * S;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float kv = krow[d], vv = vrow[d];
+      for (int i = 0; i < 4; ++i) dpd[i] *= p[i];  // ds^T
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        s[jj] = fmaf(kv, qcol[jj * S + d], s[jj]);
-        dp[jj] = fmaf(vv, ocol[jj * S + d], dp[jj]);
+      for (int jj = 0; jj < NJ; ++jj) {
+        float qv[VW], ov[VW];
+        const int col = (cg + 16 * jj) * VW;
+        f32::ldv<VW>(qv, Qc + SwQ::off(c, col));
+        f32::ldv<VW>(ov, dOc + SwQ::off(c, col));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            gv[i][jj * VW + e] = fmaf(p[i], ov[e], gv[i][jj * VW + e]);
+            gk[i][jj * VW + e] = fmaf(dpd[i], qv[e], gk[i][jj * VW + e]);
+          }
       }
     }
-    const bool key_on = key < valid;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int c = q4 * 8 + jj;
-      const float l = Ls[c];
-      const float p = (key_on && isfinite(l)) ? expf(s[jj] - l) : 0.f;
-      Ps[r * PS + c] = p;
-      DSs[r * PS + c] = p * (dp[jj] - Ds[c]);
-    }
-    __syncwarp();  // a key row's p and ds are written and read by the same four lanes
-
-    const float* prow = Ps + r * PS;
-    const float* dsrow = DSs + r * PS;
-#pragma unroll 4
-    for (int c = 0; c < BS; ++c) {
-      const float p = prow[c], ds = dsrow[c];
-      const float* qr = Qs + c * S + q4;
-      const float* orr = dOs + c * S + q4;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        gv[j] = fmaf(p, orr[4 * j], gv[j]);
-        gk[j] = fmaf(ds, qr[4 * j], gk[j]);
-      }
-    }
+    __syncthreads();  // these buffers are refilled by the next iteration's prefetch
   }
 
-  if (key < t_len) {
-    float* ok = dk + base + (size_t)key * DH + q4;
-    float* ov = dv + base + (size_t)key * DH + q4;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      ok[4 * j] = scale * gk[j];
-      ov[4 * j] = gv[j];
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * kd + i;
+    if (key >= t_len) continue;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = (cg + 16 * jj) * VW;
+      float ok[VW], ov[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        ok[e] = scale * gk[i][jj * VW + e];
+        ov[e] = gv[i][jj * VW + e];
+      }
+      f32::stv<VW>(dk + base + (size_t)key * DH + col, ok);
+      f32::stv<VW>(dv + base + (size_t)key * DH + col, ov);
     }
   }
 }
@@ -689,8 +779,8 @@ template <int DH>
 int launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_bytes<DH>();
   if (int e = set_smem(flash_dkv_kernel<DH>, smem)) return e;
-  const dim3 grid((a.t_len + BR - 1) / BR, a.bh);
-  flash_dkv_kernel<DH><<<grid, NT, smem, a.stream>>>(
+  const dim3 grid((a.t_len + KT - 1) / KT, a.bh);
+  flash_dkv_kernel<DH><<<grid, KNT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       a.lens, static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.heads, a.t_len,

@@ -31,138 +31,218 @@
 // wgmma + TMA: at B*H = 32 and T <= 1000 the grid (64..512 blocks of 4 warps)
 // and the per-tile softmax, not the tensor-core issue rate, set the time.
 //
-// f32 (flash_fwd_kernel): the first, SIMT kernel, kept so the f32 path meets
-// masg_tpu's 2e-5 bar (TF32 would not). One block of 256 threads per (b*h,
-// 64-row q tile), 32-row K/V tiles in shared memory, four threads per query
-// row, f32 FMAs on the CUDA cores: bound by shared-memory loads (one per
-// FMA), ~1/100 of its bound. Register-tiled SIMT micro-tiles are queued.
+// f32 (flash_fwd_kernel<DH, RI>): register-tiled SIMT on the CUDA cores, in
+// full f32 so that the path meets masg_tpu's 2e-5 bar (TF32 would lose three
+// digits). One block of 4 warps per (b*h, 16 * RI query rows); RI = 4 (64-row
+// tiles), or RI = 2 (32-row tiles) where 64-row tiles would leave SMs without
+// a block (T = 128 at B*H = 32). Lane l of warp w owns the RI query rows of
+// row group rg = 4 w + l / 8 and the keys kg + 8 j (kg = l % 8, j < 8) of
+// each 64-key tile, so a row's max and sum are shuffles among eight lanes of
+// one warp. The query tile, times 1/sqrt(Dh), stays in shared memory; K and V
+// tiles come by cp.async in 16-byte chunks, Q and K swizzled (f32_util.cuh),
+// each in one buffer: K of tile j + 1 is in flight while p.v of tile j runs,
+// V of tile j + 1 while the scores of tile j + 1 run. Scores: an RI x 8
+// micro-tile per thread, built over d in steps of 4 from float4 loads (RI of
+// q, broadcast within a quarter-warp, 8 of k: 128 FMAs per 12 loads at
+// RI = 4, none with a bank conflict). p goes through shared memory as p[key][row],
+// chunks of RI rows swizzled by key, so one load gives a thread's RI rows of
+// p for one key; O is an RI x Dh/8 micro-tile (4 x 16 at Dh = 128: 64 FMAs
+// per 5 loads). The online softmax is K1's in natural-log units with expf;
+// each lane keeps its part of the row sum, reduced once at the end. Shared
+// memory at Dh = 128: 112 KB (RI = 4), two blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_util.cuh"
 #include "mma_util.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 32;   // key rows per staged tile
-constexpr int NT = 256;  // threads per block: 4 per query row
+// ---- f32: CUDA cores --------------------------------------------------------
 
-template <int DH>
+constexpr int FK = 64;    // key rows per staged tile
+constexpr int FNT = 128;  // threads per block: 4 warps x 4 row groups x 8 key groups
+
+template <int DH, int RI>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
+  return sizeof(float) * (16 * RI * DH + 2 * FK * DH + FK * 16 * RI);  // Q, K, V, p
 }
 
-template <int DH>
-__global__ void __launch_bounds__(NT)
+template <int DH, int RI>
+__global__ void __launch_bounds__(FNT, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lens,
                  float* __restrict__ o, float* __restrict__ lse, int heads,
                  int t_len, float scale) {
-  constexpr int QS = DH + 1;  // padded row strides (bank-conflict free)
-  constexpr int KS = DH + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NJ = DH / 4;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * KS;
-  float* Ps = Vs + BK * DH;
+  constexpr int BQ = 16 * RI;                 // query rows per block
+  constexpr int NCH = DH / 4;                 // 16-byte chunks per row
+  constexpr int VW = DH >= 32 ? 4 : DH / 8;   // O columns per vector
+  constexpr int NJ = DH / (8 * VW);           // O vectors per row and thread
+  using SwK = f32::Swz<DH>;                    // K: read 8 rows apart (keys kg + 8 j)
+  using SwQ = f32::Swz<DH, RI == 4 ? 2 : 1>;  // Q: read RI rows apart (rows rg * RI + i)
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;          // BQ x DH, times scale, swizzled
+  float* Ks = Qs + BQ * DH;  // FK x DH, swizzled
+  float* Vs = Ks + FK * DH;  // FK x DH
+  float* Ps = Vs + FK * DH;  // p[key][row]: FK x BQ, chunk rg of key c at rg ^ (c & 7)
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // query row within the tile
-  const int q4 = tid & 3;  // quarter of that row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp * 4 + (lane >> 3);  // this thread's rows: rg * RI + i
+  const int kg = lane & 7;                // this thread's keys: kg + 8 j
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int valid = min(max(lens[bh / heads], 0), t_len);
   const size_t base = (size_t)bh * t_len * DH;
 
-  for (int i = tid; i < BQ * DH; i += NT) {
-    const int rr = i / DH, d = i % DH, row = q0 + rr;
-    Qs[rr * QS + d] = row < t_len ? q[base + (size_t)row * DH + d] * scale : 0.f;
+  // rows [row0, row0 + FK) of src into a tile by cp.async; rows >= T read as 0
+  auto stage = [&](float* dst, const float* src, int row0, bool swizzled) {
+    for (int i = tid; i < FK * NCH; i += FNT) {
+      const int r = i / NCH, d = 4 * (i % NCH), row = row0 + r;
+      const bool ok = row < t_len;
+      mma::cp_async16(mma::smem_u32(dst + (swizzled ? SwK::off(r, d) : r * DH + d)),
+                      src + base + (size_t)(ok ? row : 0) * DH + d, ok);
+    }
+  };
+
+  const int n_kb = (valid + FK - 1) / FK;
+  if (n_kb > 0) {
+    stage(Ks, k, 0, true);
+    mma::cp_async_commit();
+    stage(Vs, v, 0, false);
+    mma::cp_async_commit();
+    for (int i = tid; i < BQ * NCH; i += FNT) {  // once per block, through registers
+      const int r = i / NCH, d = 4 * (i % NCH), row = q0 + r;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < t_len) f32::ldv<4>(x, q + base + (size_t)row * DH + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] *= scale;
+      f32::stv<4>(Qs + SwQ::off(r, d), x);
+    }
   }
 
-  float acc[NJ];
+  float acc[RI][NJ * VW];
+  float m[RI], l[RI];  // row max (natural log units); this lane's part of the row sum
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NJ * VW; ++c) acc[i][c] = 0.f;
+  }
 
-  const int n_kb = (valid + BK - 1) / BK;
   for (int kb = 0; kb < n_kb; ++kb) {
-    __syncthreads();  // the previous tile's readers are done; Q is visible
-    const int k0 = kb * BK;
-    for (int i = tid; i < BK * DH; i += NT) {
-      const int c = i / DH, d = i % DH, row = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (row < t_len) {
-        kv = k[base + (size_t)row * DH + d];
-        vv = v[base + (size_t)row * DH + d];
-      }
-      Ks[c * KS + d] = kv;
-      Vs[c * DH + d] = vv;
-    }
+    const int k0 = kb * FK;
+    mma::cp_async_wait<1>();  // this tile's K is in (its V may still be in flight)
     __syncthreads();
 
-    float s[8];
+    float s[RI][8];
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) s[jj] = 0.f;
-    const float* qrow = Qs + r * QS;
-    const float* kcol = Ks + (q4 * 8) * KS;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float qv = qrow[d];
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[jj] = fmaf(qv, kcol[jj * KS + d], s[jj]);
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float qv[RI][4], kv[8][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) f32::ldv<4>(qv[i], Qs + SwQ::off(rg * RI + i, d));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f32::ldv<4>(kv[j], Ks + SwK::off(kg + 8 * j, d));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+    }
+    __syncthreads();  // every warp is done with this K tile: fetch the next one
+    if (kb + 1 < n_kb) {
+      stage(Ks, k, k0 + FK, true);
+      mma::cp_async_commit();
     }
 
-    float mt = -INFINITY;
+    // online softmax over the tile: mask keys >= len, row max over the 8 lanes
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      if (k0 + q4 * 8 + jj >= valid) s[jj] = -INFINITY;
-      mt = fmaxf(mt, s[jj]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    // guard fully masked tiles: exp(-inf - -inf) must not give NaN
-    const float m_safe = isfinite(m_new) ? m_new : 0.f;
-    float psum = 0.f;
+    for (int i = 0; i < RI; ++i) {
+      float mt = -INFINITY;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float p = isfinite(s[jj]) ? expf(s[jj] - m_safe) : 0.f;
-      Ps[r * PS + q4 * 8 + jj] = p;
-      psum += p;
+      for (int j = 0; j < 8; ++j) {
+        if (k0 + kg + 8 * j >= valid) s[i][j] = -INFINITY;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float m_new = fmaxf(m[i], mt);
+      // a row with no valid key so far: exp(-inf - -inf) must not give NaN
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_safe);  // 0 while m = -inf
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < NJ * VW; ++c) acc[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - m_safe);  // 0 at masked keys
+        l[i] += s[i][j];
+      }
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float alpha = isfinite(m) ? expf(m - m_safe) : 0.f;
-    l = alpha * l + psum;
-    m = m_new;
-    __syncwarp();  // a row's P is written and read by the same four lanes
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float pr[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) pr[i] = s[i][j];
+      f32::stv<RI>(Ps + (kg + 8 * j) * BQ + (rg ^ kg) * RI, pr);  // (kg + 8 j) & 7 = kg
+    }
 
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] *= alpha;
-    const float* prow = Ps + r * PS;
+    if (kb + 1 < n_kb)
+      mma::cp_async_wait<1>();  // this tile's V is in (the next K may still be in flight)
+    else
+      mma::cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float p = prow[c];
-      const float* vrow = Vs + c * DH + q4;
+    for (int c = 0; c < FK; ++c) {
+      float pr[RI];
+      f32::ldv<RI>(pr, Ps + c * BQ + (rg ^ (c & 7)) * RI);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] = fmaf(p, vrow[4 * j], acc[j]);
+      for (int jj = 0; jj < NJ; ++jj) {
+        float vv[VW];
+        f32::ldv<VW>(vv, Vs + c * DH + (kg + 8 * jj) * VW);
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[i][jj * VW + e] = fmaf(pr[i], vv[e], acc[i][jj * VW + e]);
+      }
+    }
+    __syncthreads();  // every warp is done with this V tile (and with p)
+    if (kb + 1 < n_kb) {
+      stage(Vs, v, k0 + FK, false);
+      mma::cp_async_commit();
     }
   }
 
-  const int row = q0 + r;
-  if (row < t_len) {
-    if (q4 == 0)
-      lse[(size_t)bh * t_len + row] =
-          l > 0.f ? (isfinite(m) ? m : 0.f) + logf(l) : -INFINITY;
-    const float denom = l == 0.f ? 1.f : l;
-    float* orow = o + base + (size_t)row * DH + q4;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[4 * j] = acc[j] / denom;
+  for (int i = 0; i < RI; ++i) {  // the whole warp takes part in the shuffles
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + rg * RI + i;
+    if (row >= t_len) continue;
+    const float denom = l[i] == 0.f ? 1.f : l[i];
+    float* orow = o + base + (size_t)row * DH;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      float ov[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) ov[e] = acc[i][jj * VW + e] / denom;
+      f32::stv<VW>(orow + (kg + 8 * jj) * VW, ov);
+    }
+    if (kg == 0) lse[(size_t)bh * t_len + row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -345,20 +425,38 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
-               float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
+template <int DH, int RI>
+int launch_f32_tiles(const void* q, const void* k, const void* v, const int* lens, void* o,
+                     float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DH, RI>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH, RI>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
+  if (e == cudaSuccess)  // two blocks of 112 KB need the largest shared-memory carveout
+    e = cudaFuncSetAttribute(flash_fwd_kernel<DH, RI>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((t_len + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<DH><<<grid, NT, smem, stream>>>(
+  const dim3 grid((t_len + 16 * RI - 1) / (16 * RI), bh);
+  flash_fwd_kernel<DH, RI><<<grid, FNT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), lens, static_cast<float*>(o), lse, heads, t_len,
       rsqrtf((float)DH));
   return (int)cudaGetLastError();
+}
+
+// 64-row query tiles; 32-row ones where the 64-row grid has fewer blocks than
+// the card has SMs
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
+               float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if ((long long)((t_len + 63) / 64) * bh < sms)
+    return launch_f32_tiles<DH, 2>(q, k, v, lens, o, lse, bh, heads, t_len, stream);
+  return launch_f32_tiles<DH, 4>(q, k, v, lens, o, lse, bh, heads, t_len, stream);
 }
 
 template <int DH>

@@ -10,7 +10,8 @@
   `_flash_dq_kernel` and `_flash_dkv_kernel`) on K1's saved row log-sum-exp.
   In bf16 all three run every product on the tensor cores (`mma.sync`; K2
   and K3 round p and ds to bf16 only as product operands, sums stay f32);
-  in f32 they are SIMT kernels on the CUDA cores, which keep masg_tpu's bars.
+  in f32 they run full-f32 FMAs on the CUDA cores, which keep masg_tpu's
+  bars (K1 and K3 register-tiled, K2 the first SIMT kernel).
   On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
   it runs its `*_plain` version, the same function in plain PyTorch.
 

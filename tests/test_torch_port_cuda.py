@@ -200,3 +200,76 @@ def test_bf16_flash_backward_ragged(dh):
             flash_attention_dkv.launches) == tuple(c + 1 for c in counts)
     assert torch.equal(qg.grad, dq) and torch.equal(kg.grad, dk) and torch.equal(vg.grad, dv)
     torch.cuda.synchronize()
+
+
+def _ragged_lens(b, t, gen):
+    """Lengths 0, 1, T and 77 first, then random ones in [1, T]."""
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[:4] = torch.tensor([0, 1, t, 77])
+    return lens.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 40])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_f32_flash_forward_ragged(dh, b):
+    """The register-tiled f32 K1 at a ragged T (not a multiple of its 32- or
+    64-row query tiles or its 64-key tiles) with lengths 0, 1, T and 77: o
+    within masg_tpu's 2e-5, LSE within 1e-4, o = 0 and LSE = -inf for the
+    length-0 row, and a length-1 row equal to its one value row. B = 4 gives
+    32 blocks of 64 rows, so the launcher takes 32-row tiles; B = 40, 64-row
+    ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(200 + dh + b)
+    t = 200
+    q, k, v = (torch.randn(b, 2, t, dh, generator=gen).cuda() for _ in range(3))
+    lens = _ragged_lens(b, t, gen)
+    n0 = flash_attention.launches
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    assert flash_attention.launches == n0 + 1
+    o_ref, lse_ref = flash_attention_plain(q, k, v, lens)
+    assert o.dtype == torch.float32 and not torch.isnan(o).any()
+    assert (o[0] == 0).all() and torch.isinf(lse[0]).all() and (lse[0] < 0).all()
+    assert torch.isfinite(lse[1:]).all()
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse[1:], lse_ref[1:], atol=1e-4, rtol=0)
+    assert torch.equal(o[1], v[1, :, :1].expand_as(o[1]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_f32_flash_dkv_ragged(dh):
+    """The register-tiled f32 K3 at a ragged T (not a multiple of its 64-key
+    or 32-query tiles) with lengths 0, 1, T and 77: dK and dV within
+    masg_tpu's 5e-3, exactly 0 at keys >= len and for the length-0 row, no
+    NaN, and the same bits from two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dkv_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(300 + dh)
+    t = 200
+    q, k, v = (torch.randn(4, 2, t, dh, generator=gen).cuda() for _ in range(3))
+    lens = _ragged_lens(4, t, gen)
+    valid = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, :, None]
+    do = torch.randn(4, 2, t, dh, generator=gen).cuda() * valid
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, lens)
+    n0 = flash_attention_dkv.launches
+    dk, dv = flash_attention_dkv(*args)
+    assert flash_attention_dkv.launches == n0 + 1
+    dk_ref, dv_ref = flash_attention_dkv_plain(*args)
+    for got, want in ((dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float32 and not torch.isnan(got).any()
+        torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+        assert (got * ~valid == 0).all() and (got[0] == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(flash_attention_dkv(*args), (dk, dv)))
+    torch.cuda.synchronize()
