@@ -8,10 +8,12 @@ Phases (any failure exits non-zero; nothing is caught):
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
    (sm_90a), all at once, print ptxas' register / shared-memory / spill report
-   (0 spill bytes required of the register-tiled f32 K1 and K3 at Dh = 128),
-   and count the tensor-core instructions (HMMA, HGMMA) of every kernel entry
-   point in the SASS (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one
-   per Dh in 16/32/64/128) and K4 (C = 32, 64) must have some;
+   (0 spill bytes required of the f32 K1 and K3 at Dh = 128, of every f32 K2
+   entry (Dh 16/32/64/128, 32- and 64-row tiles) and of the f32 K4), and count
+   the tensor-core instructions (HMMA, HGMMA) of every kernel entry point in
+   the SASS (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one per Dh in
+   16/32/64/128) and K4 (C = 32, 64), and the 3xTF32 f32 K4 (C = 32, 64),
+   must have some;
 3. K1 (flash-attention forward) against its plain PyTorch version:
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
@@ -21,9 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
 4. K4 (fused MRF stage) against its plain version at the HiFi-GAN V1 stage
    shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16), and
    a run that starts 1037 rows later, which must give the same bits at every
-   row more than 64 rows past the cut (float32 and bfloat16);
+   row more than 64 rows past the cut (float32 and bfloat16); the float32
+   bound is given at the 3xTF32 rate (the TF32 tensor-core rate / 3) beside
+   the CUDA cores' f32 rate;
 5. K2/K3 (flash-attention dQ and dK/dV) against their plain versions at the
-   K1 shapes, with the cotangent zero at padded query rows; times of the
+   K1 shapes, with the cotangent zero at padded query rows, and the same
+   bits from two launches of K2; times of the
    kernels, the plain versions, the backward of masked SDPA (K2 + K3
    together, a yardstick the port never calls) and the bound, by CUDA events
    and, for the kernels and SDPA's backward, as device time from a
@@ -48,8 +53,9 @@ Phases (any failure exits non-zero; nothing is caught):
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
    and `cli.evaluate` on the saved step;
 10. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
-   inputs, with the float32 figures as fields (`float32_forward`: K1 per
-   float32 forward; `float32_train_step`: K1, K2, K3 per float32 train step);
+   inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
+   per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
+   step);
 11. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
@@ -89,7 +95,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # SIMT f32; dense bf16 tensor cores
+# SIMT f32; dense bf16 tensor cores; f32 work as 3 TF32 products (495 / 3)
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float32_3xtf32": 495e12 / 3}
 SAMPLE_RATE, HOP = 22050, 256
 B, L, T_MEL, H, DH = 16, 128, 640, 2, 128
 DEVICE = "cuda"
@@ -219,9 +226,12 @@ def build_kernels():
                     or "smem" in line):
                 print(f"[build] {name}: {line.strip()}")
         report.update(ptxas_report(log))
-    # the register-tiled f32 K1 and K3 must not spill at the main path's Dh
-    for entry in ("flash_fwd_kernel<128,2>", "flash_fwd_kernel<128,4>",
-                  "flash_dkv_kernel<128>"):
+    # the f32 K1 and K3 must not spill at the main path's Dh, the f32 K2 at
+    # any Dh or tile, the f32 K4 at either width
+    f32_entries = ["flash_fwd_kernel<128,2>", "flash_fwd_kernel<128,4>", "flash_dkv_kernel<128>",
+                   *(f"flash_dq_kernel<{dh},{ri}>" for dh in (16, 32, 64, 128) for ri in (2, 4)),
+                   "mrf_kernel<32>", "mrf_kernel<64>"]
+    for entry in f32_entries:
         regs, spill = report[entry]
         print(f"[build] {entry}: {regs} registers, {spill} spill bytes (stores + loads)")
         assert spill == 0, (entry, spill)
@@ -275,7 +285,8 @@ def _template_int(mangled):
 def sass_mma_counts(nvcc, libs):
     """Count the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per
     kernel entry point in each built library's SASS (`cuobjdump -sass`, which
-    lies beside nvcc); fail unless every bf16 entry of K1-K4 has some."""
+    lies beside nvcc); fail unless every bf16 entry of K1-K4 and every f32
+    entry of K4 (3xTF32) has some."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -298,7 +309,8 @@ def sass_mma_counts(nvcc, libs):
     for (lib, entry), (hmma, hgmma) in sorted(counts.items()):
         print(f"[build] {lib}: {entry}: {hmma} HMMA, {hgmma} HGMMA")
     for base, want in (("flash_fwd_bf16_kernel", 4), ("flash_dq_bf16_kernel", 4),
-                       ("flash_dkv_bf16_kernel", 4), ("mrf_bf16_kernel", 2)):
+                       ("flash_dkv_bf16_kernel", 4), ("mrf_bf16_kernel", 2),
+                       ("mrf_kernel", 2)):
         found = [(e, sum(c)) for (_, e), c in counts.items() if e.startswith(base + "<")]
         assert len(found) == want, (base, found)
         assert all(n > 0 for _, n in found), f"no tensor-core instruction in {found}"
@@ -415,13 +427,19 @@ def check_mrf():
                    "ms": cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds, packed), 3),
                    "plain_ms": cuda_ms(lambda: fused_mrf_stage_plain(x, bps, ks, ds), 2),
                    "library_ms": None}
+            work = mrf_work(B, t, c, ks, 3, x.element_size())
             row["bound_ms"], row["bound_by"] = bound(
-                *mrf_work(B, t, c, ks, 3, x.element_size()), dname)
+                *work, "float32_3xtf32" if dtype == torch.float32 else dname)
+            if dtype == torch.float32:
+                row["bound_f32_ms"] = bound(*work, dname)[0]
+                rate = f"3xTF32 rate; {row['bound_f32_ms']:.3f} ms at the CUDA cores' f32 rate"
+            else:
+                rate = "bf16 rate"
             out.setdefault(dname, {})[c] = row
             print(f"[K4] {dname} C={c} T={t}: max err {err:.3g} (max |ref| "
                   f"{y_ref.float().abs().max().item():.3g}), kernel {row['ms']:.3f} ms, "
                   f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-                  f"({row['bound_by']})")
+                  f"({row['bound_by']}, {rate})")
     return out
 
 
@@ -627,10 +645,12 @@ def profile_inference(results, smi):
         print(f"[profile]   {t / 1e3:8.3f} ms  {name[:100]}")
 
 
-def main_path_kernel_times(results):
+def main_path_kernel_times(results, mrf):
     """K1/K4 at the exact inputs the bfloat16 main path gave them: per
     forward, 4 encoder calls (T=L, src lengths) + 6 decoder calls (T=T_mel,
-    mel lengths) and the 2 MRF stages. Returns the kernels-line entries."""
+    mel lengths) and the 2 MRF stages; the float32 K4 per forward from the
+    `[K4]` phase's rows (`mrf`, the same stage shapes). Returns the
+    kernels-line entries."""
     import torch
 
     from masg_tpu_torch.ops.attention import flash_attention, flash_attention_plain
@@ -699,7 +719,9 @@ def main_path_kernel_times(results):
          "replaces": "masg_tpu/ops/fused_mrf.py:82",
          "launches": results["bfloat16"]["launches"]["K4"],
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None},
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
+         "float32_forward": k4_f32_fields(mrf["float32"],
+                                          results["float32"]["launches"]["K4"])},
     ]
     for e in entries:
         print(f"[kernels] {e['name']}: per bfloat16 main-path forward ({e['launches']} "
@@ -707,7 +729,22 @@ def main_path_kernel_times(results):
               f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
     print_path_fields("flash_attention_fwd (K1)", "float32 main-path forward",
                       entries[0]["float32_forward"], "masked SDPA forward")
+    f = entries[1]["float32_forward"]
+    print(f"[kernels] fused_mrf_stage (K4): per float32 main-path forward ({f['launches']} "
+          f"launches) kernel {f['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, library None, "
+          f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}, 3xTF32 rate; "
+          f"{f['bound_f32_ms']:.4f} ms at the f32 rate), max abs err {f['max_abs_err']:.3g}")
     return entries
+
+
+def k4_f32_fields(rows, launches):
+    """The float32 K4's figures per forward: the sum of the `[K4]` rows of
+    the forward's two stages (C = 64 and 32)."""
+    f = {key: sum(r[key] for r in rows.values())
+         for key in ("ms", "plain_ms", "bound_ms", "bound_f32_ms")}
+    return f | {"launches": launches, "library_ms": None,
+                "bound_by": next(iter(rows.values()))["bound_by"],
+                "max_abs_err": max(r["err"] for r in rows.values())}
 
 
 def path_fields(acc):
@@ -824,6 +861,9 @@ def check_flash_bwd():
             q, k, v, do, lse, delta, valid = args
             errs = bwd_errors(*args[:6], lens, valid, dtype)
             a = (q, k, v, do, lse, delta, lens)
+            same = torch.equal(flash_attention_dq(*a), flash_attention_dq(*a))
+            print(f"[K2/K3] {dname} T={t}: two launches of K2 give the same bits: {same}")
+            assert same, (dname, t)
             ms = (cuda_ms(lambda: flash_attention_dq(*a), 10),
                   cuda_ms(lambda: flash_attention_dkv(*a), 10))
             dev = (device_ms(lambda: flash_attention_dq(*a), 20, "flash_dq"),
@@ -1196,11 +1236,11 @@ def main() -> int:
     smi = header()
     build_kernels()
     check_flash()
-    check_mrf()
+    mrf = check_mrf()
     check_flash_bwd()
     results = main_path(smi)
     profile_inference(results, smi)
-    entries = main_path_kernel_times(results)
+    entries = main_path_kernel_times(results, mrf)
     train = train_path(smi)
     profile_train_step(train, smi)
     trainer_path()

@@ -3,7 +3,8 @@
 one-hot(metadata) -> SpeakerMetaEncoder GMM -> sample -> generated_speaker.npy.
 Deterministic under --seed (a `torch.Generator`).
 
-    python -m masg_tpu_torch.cli.speaker_gen -c <config_dir> --gender F [--device cuda]
+    python -m masg_tpu_torch.cli.speaker_gen -c <config_dir> -r <step> --gender F \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -16,9 +17,13 @@ import numpy as np
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, required=True)
+    parser.add_argument("-r", "--restore_step", type=int, default=0,
+                        help="checkpoint step to load from the config's ckpt_path (0 = "
+                             "random init, for smoke tests only; the reference requires "
+                             "a checkpoint)")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="reference-format FastSpeech2 checkpoint "
-                             "({'model': state_dict}); random weights without one")
+                             "({'model': state_dict}), instead of -r")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--gender", type=str, default="F")
     parser.add_argument("--language", type=str, default=None,
@@ -32,11 +37,12 @@ def main(argv=None):
     from ..core.config import load_config_dir
     from ..infer.synthesis import load_model
     from ..ops.gmm import sample as gmm_sample
+    from .synthesize import warn_random_weights
 
     cfg = load_config_dir(args.config)
-    if not args.checkpoint:
-        print("WARNING: no --checkpoint: sampling from RANDOM weights")
-    model = load_model(cfg, args.checkpoint, device=args.device)
+    warn_random_weights(args)
+    model = load_model(cfg, args.checkpoint, device=args.device,
+                       restore_step=args.restore_step)
 
     values = {}
     if args.gender:

@@ -1,12 +1,14 @@
 """Single-sentence synthesis CLI (port of masg_tpu/cli/synthesize.py).
 
-    python -m masg_tpu_torch.cli.synthesize -c <config_dir> --phones '{k o N n i ch i w a}' \
-        [--checkpoint model.pth.tar] [--vocoder_checkpoint g.pth] [--device cuda]
+    python -m masg_tpu_torch.cli.synthesize -c <config_dir> -r <step> \
+        --phones '{k o N n i ch i w a}' [--vocoder_checkpoint g.pth] [--device cuda]
 
-The flags are masg_tpu's, except that `-r/--restore_step` becomes
-`--checkpoint` (a reference-format `{"model": state_dict}` file; without one
-the weights are random) and `--vocoder_checkpoint`, `--device` (default
-`cuda`), `--use_flash` and `--fused_mrf` (both on by default) are added.
+The flags are masg_tpu's: `-r/--restore_step` restores the model that
+`masg_tpu_torch.cli.train` saved at that step under the config's ckpt_path
+(0, the default: random weights). Added: `--checkpoint` (a reference-format
+`{"model": state_dict}` file, instead of `-r`), `--vocoder_checkpoint`,
+`--device` (default `cuda`), `--use_flash` and `--fused_mrf` (both on by
+default).
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ import numpy as np
 def add_model_args(parser: argparse.ArgumentParser) -> None:
     """The flags every synthesis CLI of the port shares."""
     parser.add_argument("-c", "--config", type=str, required=True)
+    parser.add_argument("-r", "--restore_step", type=int, default=0,
+                        help="checkpoint step to load from the config's ckpt_path (0 = "
+                             "random init, for smoke tests only; the reference requires "
+                             "a checkpoint)")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="reference-format FastSpeech2 checkpoint "
-                             "({'model': state_dict}); random weights without one")
+                             "({'model': state_dict}), instead of -r")
     parser.add_argument("--vocoder_checkpoint", type=str, default=None,
                         help="HiFi-GAN generator checkpoint ({'generator': state_dict})")
     parser.add_argument("--device", type=str, default="cuda",
@@ -92,14 +98,20 @@ def single_utterance_batch(ids, accents_ids):
     return {"texts": texts, "src_lens": np.array([len(ids)], np.int32), "accents": acc}
 
 
+def warn_random_weights(args) -> None:
+    """masg_tpu's warning for a run with neither -r nor --checkpoint."""
+    if args.restore_step == 0 and not args.checkpoint:
+        print("WARNING: --restore_step 0 synthesizes with RANDOM weights")
+
+
 def load_models(args, cfg):
     """(FastSpeech2, Vocoder or None) on --device."""
     from ..infer.synthesis import load_model
     from ..infer.vocoder import get_vocoder
 
-    if not args.checkpoint:
-        print("WARNING: no --checkpoint: synthesizing with RANDOM weights")
-    model = load_model(cfg, args.checkpoint, device=args.device, use_flash=args.use_flash)
+    warn_random_weights(args)
+    model = load_model(cfg, args.checkpoint, device=args.device, use_flash=args.use_flash,
+                       restore_step=args.restore_step)
     vocoder = None if args.no_vocoder else get_vocoder(
         cfg.model, cfg.config_dir, args.vocoder_checkpoint, device=args.device,
         fused_mrf=args.fused_mrf)

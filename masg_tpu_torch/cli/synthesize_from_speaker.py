@@ -3,7 +3,7 @@ masg_tpu/cli/synthesize_from_speaker.py; reference
 synthesize_from_speaker.py:106-261 -> model.synthesize_from_speaker_emb).
 
     python -m masg_tpu_torch.cli.synthesize_from_speaker -c <config_dir> \
-        -s generated_speaker.npy --phones '{k o N n i ch i w a}' [--device cuda]
+        -r <step> -s generated_speaker.npy --phones '{k o N n i ch i w a}' [--device cuda]
 """
 
 from __future__ import annotations

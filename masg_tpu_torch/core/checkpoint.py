@@ -73,9 +73,13 @@ class CheckpointManager:
 
     def restore_model_only(self, step: int, state: TrainState) -> TrainState:
         """Warm start from another run's weights (reference --checkpoint)."""
-        payload = self._load(step)
-        state.model.load_state_dict(payload["model"], strict=True)
+        weights = self.model_state_dict(step)
+        state.model.load_state_dict(weights, strict=True)
         return state
+
+    def model_state_dict(self, step: int) -> dict:
+        """The FastSpeech2 weights saved at `step` (what inference restores)."""
+        return self._load(step)["model"]
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

@@ -62,13 +62,25 @@
 // f32 (flash_dq_kernel, flash_dkv_kernel): f32 FMAs on the CUDA cores, so
 // that the f32 path meets masg_tpu's 5e-3 bar with sums ~1e-6 off (TF32
 // would lose three digits).
-//   K2 (flash_dq_kernel, the first SIMT kernel): 256 threads, 4 per query
-//   row; one block per (b*h, 64-row query tile), the query tile (pre-scaled
-//   by 1/sqrt(Dh)) and its do rows in shared memory, 32-row K and V tiles
-//   staged one at a time, the 64 x 32 ds tile through shared memory, Dh/4
-//   columns of dQ per thread; rows padded by one float. Bound by one
-//   shared-memory load per FMA (~107 KB of shared memory at Dh = 128); its
-//   register-tiled redesign is queued.
+//   K2 (flash_dq_kernel<DH, RI>, register-tiled, K1's scheme): one block of
+//   4 warps per (b*h, 16 * RI query rows); RI = 4 (64-row tiles), or RI = 2
+//   (32-row tiles) where 64-row tiles would leave SMs without a block (T = 128
+//   at B*H = 32). The query tile (times 1/sqrt(Dh)) and its do rows stay in
+//   shared memory, swizzled; 32-key K and V tiles come by cp.async in 16-byte
+//   chunks, one buffer each, fetched so that each load overlaps work: per key
+//   tile, dp = do v^T runs first (then V of the next tile is fetched), then
+//   s = q k^T and ds = exp(s - LSE) * (dp - delta), then dQ += ds k (then K of
+//   the next tile is fetched, and arrives during the next tile's dp). Lane l
+//   of warp w owns rows rg * RI + i (rg = 4 w + l / 8) and keys kg + 8 j (kg =
+//   l % 8, j < 4): RI x 4 micro-tiles of dp and s over d in steps of 4 from
+//   float4 loads (RI + 4 loads per 16 RI FMAs), dp kept in registers while s
+//   runs. ds goes to shared memory as ds[key][row], chunks of RI rows swizzled
+//   by key, so one load gives a thread's RI rows for one key; dQ is an RI x
+//   Dh/8 micro-tile (4 x 16 at Dh = 128: 64 FMAs per 5 loads). Numerics of
+//   the plain version: natural-log LSE and expf. Shared memory at Dh = 128:
+//   104 KB (RI = 4), two blocks per SM; what bounds it is the shared-memory
+//   loads and the FMA issue of the three products, at a fill of 320 blocks
+//   (T = 640) on 264 slots.
 //   K3 (flash_dkv_kernel<DH>, register-tiled): one block of 8 warps per
 //   (b*h, 64-key tile), scale * K and V resident in shared memory; 32-query
 //   tiles of q and do (rows >= T zero-filled) double-buffered by cp.async in
@@ -91,6 +103,7 @@
 #include <stdint.h>
 
 #include "f32_util.cuh"
+#include "launch_util.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -99,112 +112,181 @@ using bf16 = __nv_bfloat16;
 
 // ---- f32: CUDA cores ------------------------------------------------------
 
-constexpr int BR = 64;   // K2: query rows per block
-constexpr int BS = 32;   // K2: key rows per staged tile
-constexpr int NT = 256;  // K2: threads per block, 4 per query row
+constexpr int DQK = 32;    // K2: key rows per staged tile
+constexpr int DQNT = 128;  // K2: threads per block: 4 warps x 4 row groups x 8 key groups
 
-template <int DH>
+template <int DH, int RI>
 constexpr size_t dq_smem_bytes() {
-  // Qs, dOs (BR x DH+1); Ks, Vs (BS x DH+1); DSs (BR x BS+1)
-  return sizeof(float) * (2 * BR * (DH + 1) + 2 * BS * (DH + 1) + BR * (BS + 1));
+  return sizeof(float) * (2 * 16 * RI * DH + 2 * DQK * DH + DQK * 16 * RI);  // Q, dO, K, V, ds
 }
 
-// Copies rows [r0, r0 + n) of a (t_len, DH) slab into shared memory (row stride
-// DH + 1), times `mul`; rows at or past t_len read as 0.
-template <int DH, int N>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int r0,
-                                      int t_len, float mul) {
-  for (int i = threadIdx.x; i < N * DH; i += NT) {
-    const int rr = i / DH, d = i % DH, row = r0 + rr;
-    dst[rr * (DH + 1) + d] = row < t_len ? src[(size_t)row * DH + d] * mul : 0.f;
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(NT)
+template <int DH, int RI>
+__global__ void __launch_bounds__(DQNT, 2)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const int* __restrict__ lens, float* __restrict__ dq, int heads,
                 int t_len, float scale) {
-  constexpr int S = DH + 1;  // padded row stride
-  constexpr int PS = BS + 1;
-  constexpr int NJ = DH / 4;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BR * S;
-  float* Ks = dOs + BR * S;
-  float* Vs = Ks + BS * S;
-  float* DSs = Vs + BS * S;
+  constexpr int BQ = 16 * RI;                 // query rows per block
+  constexpr int NCH = DH / 4;                 // 16-byte chunks per row
+  constexpr int KJ = DQK / 8;                 // keys per thread in the score micro-tile
+  constexpr int VW = DH >= 32 ? 4 : DH / 8;   // dQ columns per vector
+  constexpr int NJ = DH / (8 * VW);           // dQ vectors per row and thread
+  using SwK = f32::Swz<DH>;                    // K, V: read 8 rows apart (keys kg + 8 j)
+  using SwQ = f32::Swz<DH, RI == 4 ? 2 : 1>;  // q, do: read RI rows apart (rows rg * RI + i)
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // BQ x DH, times scale, swizzled
+  float* dOs = Qs + BQ * DH;   // BQ x DH, swizzled
+  float* Ks = dOs + BQ * DH;   // DQK x DH, swizzled
+  float* Vs = Ks + DQK * DH;   // DQK x DH, swizzled
+  float* DSs = Vs + DQK * DH;  // ds[key][row]: DQK x BQ, chunk rg of key c at rg ^ (c & 7)
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BR;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // query row within the tile
-  const int q4 = tid & 3;  // quarter of that row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp * 4 + (lane >> 3);  // this thread's rows: rg * RI + i
+  const int kg = lane & 7;                // this thread's keys: kg + 8 j
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int valid = min(max(lens[bh / heads], 0), t_len);
   const size_t base = (size_t)bh * t_len * DH;
-  const int row = q0 + r;
 
-  stage<DH, BR>(Qs, q + base, q0, t_len, scale);
-  stage<DH, BR>(dOs, dout + base, q0, t_len, 1.f);
-  float row_lse = -INFINITY, row_delta = 0.f;
-  if (row < t_len) {
-    row_lse = lse[(size_t)bh * t_len + row];
-    row_delta = delta[(size_t)bh * t_len + row];
+  // rows [row0, row0 + DQK) of src into a swizzled tile by cp.async; rows >= T read as 0
+  auto stage = [&](float* dst, const float* src, int row0) {
+    for (int i = tid; i < DQK * NCH; i += DQNT) {
+      const int r = i / NCH, d = 4 * (i % NCH), row = row0 + r;
+      const bool ok = row < t_len;
+      mma::cp_async16(mma::smem_u32(dst + SwK::off(r, d)),
+                      src + base + (size_t)(ok ? row : 0) * DH + d, ok);
+    }
+  };
+
+  // this thread's rows: LSE (a row that is dead or past T contributes nothing)
+  // and delta
+  float row_lse[RI], row_delta[RI];
+  bool live[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + rg * RI + i;
+    const float l = row < t_len ? lse[(size_t)bh * t_len + row] : -INFINITY;
+    live[i] = isfinite(l);
+    row_lse[i] = live[i] ? l : 0.f;
+    row_delta[i] = row < t_len ? delta[(size_t)bh * t_len + row] : 0.f;
   }
-  const bool live = isfinite(row_lse);
 
-  float acc[NJ];
+  const int n_kb = (valid + DQK - 1) / DQK;
+  if (n_kb > 0) {
+    stage(Vs, v, 0);
+    mma::cp_async_commit();
+    stage(Ks, k, 0);
+    mma::cp_async_commit();
+    for (int i = tid; i < BQ * NCH; i += DQNT) {  // once per block, through registers
+      const int r = i / NCH, d = 4 * (i % NCH), row = q0 + r;
+      float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < t_len) {
+        f32::ldv<4>(x, q + base + (size_t)row * DH + d);
+        f32::ldv<4>(y, dout + base + (size_t)row * DH + d);
+      }
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+      for (int e = 0; e < 4; ++e) x[e] *= scale;
+      f32::stv<4>(Qs + SwQ::off(r, d), x);
+      f32::stv<4>(dOs + SwQ::off(r, d), y);
+    }
+  }
 
-  const int n_kb = (valid + BS - 1) / BS;
+  float acc[RI][NJ * VW];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < NJ * VW; ++c) acc[i][c] = 0.f;
+
+  // an RI x KJ micro-tile of a . b^T over d, a from rows rg * RI + i of A
+  // (SwQ), b from rows kg + 8 j of B (SwK)
+  auto micro = [&](float (&s)[RI][KJ], const float* A, const float* Bt) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+      float av[RI][4], bv[KJ][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) f32::ldv<4>(av[i], A + SwQ::off(rg * RI + i, d));
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) f32::ldv<4>(bv[j], Bt + SwK::off(kg + 8 * j, d));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(av[i][e], bv[j][e], s[i][j]);
+    }
+  };
+
+  // Per key tile: dp = do v^T (V of the next tile is fetched after it), then
+  // s = (scale q) k^T and ds = exp(s - LSE) (dp - delta) to shared memory,
+  // then dQ += ds k (K of the next tile is fetched after it, and arrives
+  // while the next tile's dp runs).
   for (int kb = 0; kb < n_kb; ++kb) {
-    __syncthreads();  // the previous tile's readers are done; Q and dO are visible
-    const int k0 = kb * BS;
-    stage<DH, BS>(Ks, k + base, k0, t_len, 1.f);
-    stage<DH, BS>(Vs, v + base, k0, t_len, 1.f);
+    const int k0 = kb * DQK;
+    mma::cp_async_wait<1>();  // this tile's V is in (its K may still be in flight)
     __syncthreads();
-
-    float s[8], dp[8];
+    float dp[RI][KJ];
+    micro(dp, dOs, Vs);
+    __syncthreads();  // every warp is done with this V tile: fetch the next one
+    if (kb + 1 < n_kb) {
+      stage(Vs, v, k0 + DQK);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();  // this tile's K is in (the next V may still be in flight)
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[RI][KJ];
+    micro(s, Qs, Ks);
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) s[jj] = dp[jj] = 0.f;
-    const float* qrow = Qs + r * S;
-    const float* orow = dOs + r * S;
-    const float* kcol = Ks + (q4 * 8) * S;
-    const float* vcol = Vs + (q4 * 8) * S;
+    for (int j = 0; j < KJ; ++j) {
+      const bool key_on = k0 + kg + 8 * j < valid;
+      float ds[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = key_on && live[i] ? expf(s[i][j] - row_lse[i]) : 0.f;
+        ds[i] = p * (dp[i][j] - row_delta[i]);
+      }
+      f32::stv<RI>(DSs + (kg + 8 * j) * BQ + (rg ^ kg) * RI, ds);  // (kg + 8 j) & 7 = kg
+    }
+    __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float qv = qrow[d], ov = orow[d];
+    for (int c = 0; c < DQK; ++c) {
+      float ds[RI];
+      f32::ldv<RI>(ds, DSs + c * BQ + (rg ^ (c & 7)) * RI);
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        s[jj] = fmaf(qv, kcol[jj * S + d], s[jj]);
-        dp[jj] = fmaf(ov, vcol[jj * S + d], dp[jj]);
+      for (int jj = 0; jj < NJ; ++jj) {
+        float kv[VW];
+        f32::ldv<VW>(kv, Ks + SwK::off(c, (kg + 8 * jj) * VW));
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e)
+            acc[i][jj * VW + e] = fmaf(ds[i], kv[e], acc[i][jj * VW + e]);
       }
     }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const bool on = live && (k0 + q4 * 8 + jj < valid);
-      const float p = on ? expf(s[jj] - row_lse) : 0.f;
-      DSs[r * PS + q4 * 8 + jj] = p * (dp[jj] - row_delta);
-    }
-    __syncwarp();  // a row's ds is written and read by the same four lanes
-
-    const float* dsrow = DSs + r * PS;
-#pragma unroll 4
-    for (int c = 0; c < BS; ++c) {
-      const float ds = dsrow[c];
-      const float* krow = Ks + c * S + q4;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] = fmaf(ds, krow[4 * j], acc[j]);
+    __syncthreads();  // every warp is done with this K tile (and with ds)
+    if (kb + 1 < n_kb) {
+      stage(Ks, k, k0 + DQK);
+      mma::cp_async_commit();
     }
   }
 
-  if (row < t_len) {
-    float* out = dq + base + (size_t)row * DH + q4;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) out[4 * j] = scale * acc[j];
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + rg * RI + i;
+    if (row >= t_len) continue;
+    float* orow = dq + base + (size_t)row * DH;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      float ov[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) ov[e] = scale * acc[i][jj * VW + e];
+      f32::stv<VW>(orow + (kg + 8 * jj) * VW, ov);
+    }
   }
 }
 
@@ -754,6 +836,7 @@ struct Args {
   const int* lens;
   void *out0, *out1;  // dq; or dk, dv
   int bh, heads, t_len;
+  int device;  // the current device, which the stream belongs to
   cudaStream_t stream;
 };
 
@@ -763,16 +846,30 @@ int set_smem(Kernel kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <int DH>
-int launch_dq(const Args& a) {
-  const size_t smem = dq_smem_bytes<DH>();
-  if (int e = set_smem(flash_dq_kernel<DH>, smem)) return e;
-  const dim3 grid((a.t_len + BR - 1) / BR, a.bh);
-  flash_dq_kernel<DH><<<grid, NT, smem, a.stream>>>(
+template <int DH, int RI>
+int launch_dq_tiles(const Args& a) {
+  static std::atomic<uint64_t> attrs_set{0};
+  const size_t smem = dq_smem_bytes<DH, RI>();
+  // two blocks of 104 KB need the largest shared-memory carveout
+  if (int e = once::set_attributes(attrs_set, a.device, flash_dq_kernel<DH, RI>, smem,
+                                          true))
+    return e;
+  const dim3 grid((a.t_len + 16 * RI - 1) / (16 * RI), a.bh);
+  flash_dq_kernel<DH, RI><<<grid, DQNT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       a.lens, static_cast<float*>(a.out0), a.heads, a.t_len, rsqrtf((float)DH));
   return (int)cudaGetLastError();
+}
+
+// 64-row query tiles; 32-row ones where the 64-row grid has fewer blocks than
+// the card has SMs (K1's rule)
+template <int DH>
+int launch_dq(const Args& a) {
+  int sms = 0;
+  if (int e = once::sm_count(a.device, &sms)) return e;
+  if ((long long)((a.t_len + 63) / 64) * a.bh < sms) return launch_dq_tiles<DH, 2>(a);
+  return launch_dq_tiles<DH, 4>(a);
 }
 
 template <int DH>
@@ -837,12 +934,13 @@ int dispatch(const Args& a, int dh, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; device: the index of the current device, which
+// the stream belongs to. Each returns a cudaError_t code (0 = launched).
 extern "C" int masg_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  const int* lens, void* dq, int bh, int heads, int t_len,
-                                 int dh, int dtype, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, lens, dq, nullptr, bh, heads, t_len,
+                                 int dh, int dtype, int device, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, lens, dq, nullptr, bh, heads, t_len, device,
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, dh, dtype);
 }
@@ -850,8 +948,8 @@ extern "C" int masg_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int masg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   const int* lens, void* dk, void* dv, int bh, int heads,
-                                  int t_len, int dh, int dtype, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, lens, dk, dv, bh, heads, t_len,
+                                  int t_len, int dh, int dtype, int device, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, lens, dk, dv, bh, heads, t_len, device,
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(a, dh, dtype);
 }

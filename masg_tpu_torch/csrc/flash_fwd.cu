@@ -49,7 +49,9 @@
 // p for one key; O is an RI x Dh/8 micro-tile (4 x 16 at Dh = 128: 64 FMAs
 // per 5 loads). The online softmax is K1's in natural-log units with expf;
 // each lane keeps its part of the row sum, reduced once at the end. Shared
-// memory at Dh = 128: 112 KB (RI = 4), two blocks per SM.
+// memory at Dh = 128: 112 KB (RI = 4), two blocks per SM. Its launcher sets
+// the kernel's attributes and reads the SM count once per device
+// (launch_util.cuh), so a call makes no runtime query.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +59,7 @@
 #include <stdint.h>
 
 #include "f32_util.cuh"
+#include "launch_util.cuh"
 #include "mma_util.cuh"
 
 namespace {
@@ -427,16 +430,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DH, int RI>
 int launch_f32_tiles(const void* q, const void* k, const void* v, const int* lens, void* o,
-                     float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
+                     float* lse, int bh, int heads, int t_len, int device,
+                     cudaStream_t stream) {
+  static std::atomic<uint64_t> attrs_set{0};
   const size_t smem = smem_bytes<DH, RI>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH, RI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e == cudaSuccess)  // two blocks of 112 KB need the largest shared-memory carveout
-    e = cudaFuncSetAttribute(flash_fwd_kernel<DH, RI>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
+  // two blocks of 112 KB need the largest shared-memory carveout
+  if (int e = once::set_attributes(attrs_set, device, flash_fwd_kernel<DH, RI>, smem,
+                                          true))
+    return e;
   const dim3 grid((t_len + 16 * RI - 1) / (16 * RI), bh);
   flash_fwd_kernel<DH, RI><<<grid, FNT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -449,14 +450,12 @@ int launch_f32_tiles(const void* q, const void* k, const void* v, const int* len
 // the card has SMs
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
-               float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+               float* lse, int bh, int heads, int t_len, int device, cudaStream_t stream) {
+  int sms = 0;
+  if (int e = once::sm_count(device, &sms)) return e;
   if ((long long)((t_len + 63) / 64) * bh < sms)
-    return launch_f32_tiles<DH, 2>(q, k, v, lens, o, lse, bh, heads, t_len, stream);
-  return launch_f32_tiles<DH, 4>(q, k, v, lens, o, lse, bh, heads, t_len, stream);
+    return launch_f32_tiles<DH, 2>(q, k, v, lens, o, lse, bh, heads, t_len, device, stream);
+  return launch_f32_tiles<DH, 4>(q, k, v, lens, o, lse, bh, heads, t_len, device, stream);
 }
 
 template <int DH>
@@ -477,27 +476,28 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* lens, vo
 
 template <int DH>
 int launch(int dtype, const void* q, const void* k, const void* v, const int* lens,
-           void* o, float* lse, int bh, int heads, int t_len, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<DH>(q, k, v, lens, o, lse, bh, heads, t_len, s);
+           void* o, float* lse, int bh, int heads, int t_len, int device, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<DH>(q, k, v, lens, o, lse, bh, heads, t_len, device, s);
   if (dtype == 1) return launch_bf16<DH>(q, k, v, lens, o, lse, bh, heads, t_len, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; device: the index of the current device,
+// which the stream belongs to. Returns a cudaError_t code (0 = launched).
 extern "C" int masg_flash_fwd(const void* q, const void* k, const void* v,
                               const int* lens, void* o, float* lse, int bh,
-                              int heads, int t_len, int dh, int dtype,
+                              int heads, int t_len, int dh, int dtype, int device,
                               void* stream) {
   if (bh <= 0 || t_len <= 0) return 0;
   if (heads <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return launch<16>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, s);
-    case 32: return launch<32>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, s);
-    case 64: return launch<64>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, s);
-    case 128: return launch<128>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, s);
+    case 16: return launch<16>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, device, s);
+    case 32: return launch<32>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, device, s);
+    case 64: return launch<64>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, device, s);
+    case 128: return launch<128>(dtype, q, k, v, lens, o, lse, bh, heads, t_len, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

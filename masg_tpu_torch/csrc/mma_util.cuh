@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the bf16 kernels (K1 in flash_fwd.cu, K2 and
-// K3 in flash_bwd.cu, K4 in fused_mrf.cu): cp.async, ldmatrix, mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) and the XOR swizzle that keeps ldmatrix
+// K3 in flash_bwd.cu, K4 in fused_mrf.cu) and the f32 K4 (3xTF32): cp.async,
+// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate) and m16n8k8 (tf32 in,
+// f32 accumulate), the tf32 rounding, and the XOR swizzle that keeps ldmatrix
 // free of bank conflicts.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
@@ -60,6 +61,30 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b  (16x8 tf32 by 8x8 tf32, f32 accumulators). Fragments (PTX ISA,
+// mma.m16n8k8 with .tf32): a[0] = (g, q), a[1] = (g + 8, q), a[2] = (g, q + 4),
+// a[3] = (g + 8, q + 4); b[0] = (k = q, n = g), b[1] = (k = q + 4, n = g); C/D
+// as above. ldsm_x4 on rows of floats gives the A fragment: 8x8 b16 matrices
+// are 8 x 4 floats, and lane l receives float l % 4 of row l / 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  // not volatile: a pure function of its operands, so independent products
+  // may be interleaved
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero), as
+// the bits of an f32 whose low 13 bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 // two floats -> one register of two bf16 (round to nearest even), lo first

@@ -29,19 +29,29 @@ def round_up(n: int, m: int) -> int:
 
 def load_model(cfg: ExperimentConfig, checkpoint: Optional[str] = None,
                device: DeviceLike = None, dtype: torch.dtype = torch.float32,
-               use_flash: bool = True, seed: int = 0) -> FastSpeech2:
+               use_flash: bool = True, seed: int = 0, restore_step: int = 0) -> FastSpeech2:
     """FastSpeech2 in eval mode on `device` (the card when None), with the
-    weights of a reference-format checkpoint (`{"model": state_dict}`, e.g.
-    `python -m masg_tpu.cli.convert_checkpoint --to_torch`), or seeded
-    random weights without one (reference get_model(train=False),
-    utils/model.py:11-34)."""
+    weights the experiment's own training saved at `restore_step` (its
+    `cfg.train.path.ckpt_path`, model only, as masg_tpu's `load_model(cfg,
+    restore_step)`), or those of a reference-format checkpoint file
+    (`{"model": state_dict}`, e.g. `python -m masg_tpu.cli.convert_checkpoint
+    --to_torch`), or seeded random weights without either (reference
+    get_model(train=False), utils/model.py:11-34)."""
+    if checkpoint and restore_step:
+        raise ValueError("load_model takes a checkpoint file or a restore_step, not both")
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = FastSpeech2.from_config(cfg, use_flash=use_flash)
-    if checkpoint:
+    sd = None
+    if restore_step:
+        from ..core.checkpoint import CheckpointManager
+
+        sd = CheckpointManager(cfg.train.path.ckpt_path).model_state_dict(restore_step)
+    elif checkpoint:
         ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
         sd = ckpt.get("model", ckpt)
+    if sd is not None:
         # strip DataParallel 'module.' prefixes (reference train.py:272-275)
         sd = {k[len("module."):] if k.startswith("module.") else k: v
               for k, v in sd.items()}

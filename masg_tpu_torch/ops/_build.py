@@ -104,19 +104,23 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "flash_fwd":
         fns = [(lib.masg_flash_fwd,
-                # q, k, v, lens, o, lse, bh, heads, t, dh, dtype, stream
-                [p, p, p, p, p, p, i, i, i, i, i, p])]
+                # q, k, v, lens, o, lse, bh, heads, t, dh, dtype, device, stream
+                [p, p, p, p, p, p, i, i, i, i, i, i, p])]
     elif name == "flash_bwd":
         fns = [(lib.masg_flash_bwd_dq,
-                # q, k, v, do, lse, delta, lens, dq, bh, heads, t, dh, dtype, stream
-                [p, p, p, p, p, p, p, p, i, i, i, i, i, p]),
+                # q, k, v, do, lse, delta, lens, dq, bh, heads, t, dh, dtype, device,
+                # stream
+                [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]),
                (lib.masg_flash_bwd_dkv,
-                # q, k, v, do, lse, delta, lens, dk, dv, bh, heads, t, dh, dtype, stream
-                [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])]
+                # q, k, v, do, lse, delta, lens, dk, dv, bh, heads, t, dh, dtype,
+                # device, stream
+                [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p])]
     else:
         fns = [(lib.masg_fused_mrf,
-                # x, out, w, bias, acc, b, t, c, dtype, n_res, n_dil, ks, dils, stream
-                [p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), p])]
+                # x, out, w, bias, acc, b, t, c, dtype, n_res, n_dil, ks, dils, device,
+                # stream
+                [p, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), i,
+                 p])]
     for fn, argtypes in fns:
         fn.argtypes = argtypes
         fn.restype = i

@@ -10,8 +10,8 @@
   `_flash_dq_kernel` and `_flash_dkv_kernel`) on K1's saved row log-sum-exp.
   In bf16 all three run every product on the tensor cores (`mma.sync`; K2
   and K3 round p and ds to bf16 only as product operands, sums stay f32);
-  in f32 they run full-f32 FMAs on the CUDA cores, which keep masg_tpu's
-  bars (K1 and K3 register-tiled, K2 the first SIMT kernel).
+  in f32 they run full-f32 FMAs on the CUDA cores, register-tiled, which
+  keep masg_tpu's bars.
   On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
   it runs its `*_plain` version, the same function in plain PyTorch.
 
@@ -175,7 +175,8 @@ def _flash_fwd(q, k, v, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.masg_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                  b * h, h, t, dh, _KERNEL_DTYPES[q.dtype], stream)
+                                  b * h, h, t, dh, _KERNEL_DTYPES[q.dtype], q.device.index,
+                                  stream)
     _build.check(code, "flash_fwd")
     flash_attention.launches += 1
     return o, lse
@@ -198,7 +199,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, lengths) -> torch.Tensor:
         code = lib.masg_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                                      lens.data_ptr(), dq.data_ptr(), b * h, h, t, dh,
-                                     _KERNEL_DTYPES[q.dtype], stream)
+                                     _KERNEL_DTYPES[q.dtype], q.device.index, stream)
     _build.check(code, "flash_bwd_dq")
     flash_attention_dq.launches += 1
     return dq
@@ -222,7 +223,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, lengths
         code = lib.masg_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                                       lens.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                      b * h, h, t, dh, _KERNEL_DTYPES[q.dtype], stream)
+                                      b * h, h, t, dh, _KERNEL_DTYPES[q.dtype],
+                                      q.device.index, stream)
     _build.check(code, "flash_bwd_dkv")
     flash_attention_dkv.launches += 1
     return dk, dv

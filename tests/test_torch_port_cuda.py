@@ -273,3 +273,69 @@ def test_f32_flash_dkv_ragged(dh):
         assert (got * ~valid == 0).all() and (got[0] == 0).all()
     assert all(torch.equal(a, b) for a, b in zip(flash_attention_dkv(*args), (dk, dv)))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,b", [(16, 4), (32, 40), (64, 4), (64, 40), (128, 4), (128, 40)])
+def test_f32_flash_dq_ragged(dh, b):
+    """The register-tiled f32 K2 at a ragged T (not a multiple of its 32- or
+    64-row query tiles or its 32-key tiles) with lengths 0, 1, T and 77: dQ at
+    valid rows within masg_tpu's 5e-3, no NaN anywhere (the length-0 row
+    gives 0), the same bits from two launches, and one launch counted. B = 4
+    gives 32 blocks of 64 rows, so the launcher takes 32-row tiles; B = 40,
+    64-row ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dq,
+                                              flash_attention_dq_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(400 + dh + b)
+    t = 200
+    q, k, v = (torch.randn(b, 2, t, dh, generator=gen).cuda() for _ in range(3))
+    lens = _ragged_lens(b, t, gen)
+    valid = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, :, None]
+    do = torch.randn(b, 2, t, dh, generator=gen).cuda() * valid
+    o, lse = flash_attention(q, k, v, lens, return_lse=True)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, lens)
+    n0 = flash_attention_dq.launches
+    dq = flash_attention_dq(*args)
+    assert flash_attention_dq.launches == n0 + 1
+    dq_ref = flash_attention_dq_plain(*args)
+    assert dq.dtype == torch.float32 and not torch.isnan(dq).any()
+    assert (dq[0] == 0).all()
+    torch.testing.assert_close(dq * valid, dq_ref * valid, atol=5e-3, rtol=0)
+    assert torch.equal(flash_attention_dq(*args), dq)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t", [(32, 3000), (64, 2000), (64, 1), (32, 1), (64, 50), (32, 40)])
+def test_f32_fused_mrf_matches_plain_over_tiles_and_edges(c, t):
+    """The 3xTF32 K4 (tiles of 640 rows at C=32, 256 at C=64) at both sequence
+    edges, across tile joins, at T = 1 and at T below the 64-row halo, within
+    2e-5 of the f32 plain path with TF32 off. Where T spans two tiles, a run
+    that starts 37 rows into the second tile gives the same bits at every row
+    more than 64 rows past the cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(500 + c + t)
+    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    blocks = _mrf_blocks(c, gen)
+    x = torch.randn(2, t, c, generator=gen).cuda()
+    n0 = fused_mrf_stage.launches
+    y = fused_mrf_stage(x, blocks, ks, ds)
+    assert fused_mrf_stage.launches == n0 + 1
+    y_ref = fused_mrf_stage_plain(x, blocks, ks, ds)
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_ref, atol=2e-5, rtol=0)
+    tile = {32: 640, 64: 256}[c]
+    if t > tile + 37 + 65:
+        s0 = tile + 37
+        y_cut = fused_mrf_stage(x[:, s0:].contiguous(), blocks, ks, ds)
+        assert torch.equal(y_cut[:, 65:], y[:, s0 + 65:])
+    torch.cuda.synchronize()

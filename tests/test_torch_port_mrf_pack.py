@@ -1,8 +1,9 @@
 """K4's packed weights (masg_tpu_torch.ops.fused_mrf.pack_stage_weights):
 the packing round-trips to the `convs{1,2}_{i}_kernel`/`_bias` tensors in
-both kernel dtypes, the bf16 fragment order is the one csrc/fused_mrf.cu
-reads, and HiFiGANGenerator packs a stage once and packs again when its
-weights change (load_state_dict, .to, an in-place update)."""
+both kernel dtypes, the bf16 and f32 (TF32 part + remainder) fragment orders
+are the ones csrc/fused_mrf.cu reads, and HiFiGANGenerator packs a stage once
+and packs again when its weights change (load_state_dict, .to, an in-place
+update)."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ import torch
 
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.ops.fused_mrf import (PackedStage, fused_mrf_stage, pack_stage_weights,
-                                          unpack_stage_weights)
+                                          tf32_round, unpack_stage_weights)
 
 torch.set_num_threads(1)
 
@@ -39,7 +40,9 @@ def test_packing_round_trips(c, dtype):
     blocks = _blocks(c, c)
     packed = pack_stage_weights(blocks, KS, 3, dtype, "cpu")
     assert packed.weight.dtype == dtype and packed.bias.dtype == torch.float32
-    assert packed.weight.numel() == 2 * 3 * sum(KS) * c * c
+    # f32 holds each element twice: its TF32 part and the remainder
+    per_element = 2 if dtype == torch.float32 else 1
+    assert packed.weight.numel() == per_element * 2 * 3 * sum(KS) * c * c
     assert packed.bias.shape == (18, c)
     back = unpack_stage_weights(packed)
     for want, got in zip(blocks, back):
@@ -65,6 +68,37 @@ def test_bf16_fragment_order():
                 assert frag[j, 0, 0, lane, e] == w[j, ci, co]
     # k-step 1, n-tile pair 1 of the last tap
     assert frag[2, 1, 1, 9, 6] == w[2, 16 + 2 * 1 + 0 + 8, 8 * 3 + 2]
+
+
+def test_f32_split_fragment_order():
+    """The f32 order the 3xTF32 kernel reads: per tap, (k-step kk, n-tile n,
+    lane l) holds hi(W[8 kk + l % 4][8 n + l // 4]), hi(W[8 kk + l % 4 + 4][..])
+    and the two remainders W - hi; hi is a TF32 value (low 13 bits 0) and
+    hi + remainder gives W back bit for bit."""
+    c = 64
+    blocks = _blocks(c, 2)
+    w = blocks[1]["convs2_2_kernel"]  # resblock 1 (k = 7), unit 2, conv2
+    packed = pack_stage_weights(blocks, KS, 3, torch.float32, "cpu").weight
+    first = (3 * 2 * 3 + 7 * 2 * 2 + 7) * c * c * 2  # convs before it, two floats each
+    frag = packed[first:first + 7 * c * c * 2].reshape(7, c // 8, c // 8, 32, 4)
+    hi, rem = frag[..., :2], frag[..., 2:]
+    assert ((hi.contiguous().view(torch.int32) & 0x1FFF) == 0).all()
+    assert torch.equal(hi, tf32_round(hi))
+    for j, kk, n, lane in ((0, 0, 0, 0), (3, 2, 5, 13), (6, 7, 7, 31)):
+        for e in range(2):
+            want = w[j, 8 * kk + lane % 4 + 4 * e, 8 * n + lane // 4]
+            assert hi[j, kk, n, lane, e] == tf32_round(want)
+            assert hi[j, kk, n, lane, e] + rem[j, kk, n, lane, e] == want
+    # the remainder is at most half a TF32 ulp of W
+    assert (rem.abs() <= hi.abs() * 2 ** -11).all()
+
+
+def test_tf32_round_is_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 3 * 2 ** -12,
+                      -(1.0 + 2 ** -12), 3.0 * 2 ** 100])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0 + 2 ** -10, -1.0,
+                         3.0 * 2 ** 100])
+    assert torch.equal(tf32_round(x), want)
 
 
 def test_generator_packs_once_and_sees_new_weights():
