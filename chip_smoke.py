@@ -42,21 +42,36 @@ Phases (any failure exits non-zero; nothing is caught):
    then a torch.profiler window over one bfloat16 kernel-path text->wav: the
    device's idle share, K1's and K4's device time, the vocoder's device time
    outside K4 and its host-only time;
-7. the train path: the plain FastSpeech2 train step (`train.step`) at the
+7. the serving path ([serve]): the same flagship weights in float32 behind
+   `ServingEngine` (text buckets 16/32/64/128, 12 frames per phone, mel caps
+   256/384/768/1000) + `DynamicBatcher` (max batch 8, 5 ms window, queue cap
+   64) + `cli.serve.make_server` on an ephemeral port: the warm-up of the
+   (1, 2, 4, 8) x 4 buckets, GET /health, 32 POST /synthesize from 16 client
+   threads (every answer 200 and a RIFF wav, fewer dispatches than requests,
+   K1 and K4 launched exactly 10 and 2 times per dispatch), the kernel engine
+   against a plain-path engine (one request per bucket) and 8 batched
+   requests against their single runs, one POST /synthesize_streaming at
+   bucket 128 against the one-shot vocode of its trimmed mel (and the
+   measured receptive field), a barycenter voice from `cli.build_distribution`
+   served as speaker_emb, a bfloat16 engine; B=1 latency per bucket, req/s
+   and p50/p99 latency under the 16 clients, first-audio time, and K1's and
+   K4's device time per B=1 request at bucket 128;
+8. the train path: the plain FastSpeech2 train step (`train.step`) at the
    flagship width and B=16, L=128, T_mel=640: float32 kernel vs plain path
    (loss, every gradient, BatchNorm statistics; dropout off), launch counts
    per step, steps/s in float32 and bf16 autocast on both paths, and 20
    bf16-autocast steps against float32;
-8. a torch.profiler window over 3 kernel-path train steps per dtype: the
+9. a torch.profiler window over 3 kernel-path train steps per dtype: the
    device's idle share, K1's, K2's, K3's and the optimizer's device time;
-9. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
+10. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
    and `cli.evaluate` on the saved step;
-10. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+11. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
-   step);
-11. the `{"ok": true, ...}` line, last.
+   step; `serve`: K1's and K4's launches under the 32 served requests and
+   their device time per B=1 request at bucket 128);
+12. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -78,6 +93,10 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
   and dV exactly 0 at keys >= len; no NaN.
 - main path float32: duration_rounded and mel_len identical, postnet_mel
   within 2e-4 (masg_tpu's flash-vs-XLA model bar), int16 wavs within 2 LSB.
+- serve float32: kernel vs plain engine mel_len identical, wav within 2 LSB
+  (the main path's bar); batched vs single requests within 2 LSB (masg_tpu's
+  atol=2); streamed PCM within 2 LSB of the one-shot vocode of the trimmed
+  mel (window and full-length shapes may take other cuDNN algorithms).
 - train step float32: losses within 1e-5 relative, every gradient within
   2e-3 (masg_tpu's model-gradient-with-flash bar), BatchNorm statistics
   within 1e-5; 20 bf16-autocast steps within 25 % of float32's last loss
@@ -1216,6 +1235,380 @@ def train_kernel_times(train, smi):
     return entries, k1_train
 
 
+SERVE_BUCKETS, SERVE_FPP, SERVE_LADDER = (16, 32, 64, 128), 12, (1, 2, 4, 8)
+
+
+def _phone_pool():
+    """Phone symbols that a '{...}' request string round-trips."""
+    from masg_tpu_torch.text import phone_string_to_sequence
+    from masg_tpu_torch.text.symbols import symbols
+
+    pool = [s for s in symbols if s.isascii() and s.isalpha()]
+    assert phone_string_to_sequence("{" + " ".join(pool) + "}")
+    return pool
+
+
+def _http(url, path, payload=None, timeout=120):
+    """(status, headers, body) of a GET (payload None) or JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _wav_pcm(body):
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, SAMPLE_RATE)
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def _max_lsb(a, b):
+    import numpy as np
+
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def _stream(url, payload):
+    """(PCM, seconds to the first audio sample, seconds to the end) of one
+    POST /synthesize_streaming."""
+    import urllib.request
+
+    import numpy as np
+
+    req = urllib.request.Request(url + "/synthesize_streaming", method="POST",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        assert resp.status == 200 and resp.headers["Transfer-Encoding"] == "chunked"
+        head = resp.read(46)  # the RIFF header and the first PCM sample
+        first = time.perf_counter() - t0
+        body = head + resp.read()
+    assert body[:4] == b"RIFF" and body[36:40] == b"data"
+    return np.frombuffer(body[44:], np.int16), first, time.perf_counter() - t0
+
+
+def profile_stream(engine, ids, smi):
+    """A torch.profiler window over one warm `synthesize_streaming` of `ids`
+    (speaker 5), called on the engine without HTTP: the wall time to the
+    first chunk and to the end, the device's busy time and idle share, and
+    the busy time of the mel-only forward apart from the vocoder windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen = engine.synthesize_streaming(ids, speaker_id=5)
+        with record_function("masg::first_chunk"):
+            chunks = [next(gen)]
+        t1 = time.perf_counter()
+        marks = [t1]
+        for chunk in gen:
+            chunks.append(chunk)
+            marks.append(time.perf_counter())
+        t2 = time.perf_counter()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in evs if not getattr(e, "is_user_annotation", False)]
+    assert kern, "the profiler saw no device work on the streaming path"
+    iv = [(e.time_range.start, e.time_range.end) for e in kern]
+    busy = _union_us(iv)
+    k4 = sum(e.time_range.end - e.time_range.start for e in kern if "mrf_" in e.name)
+    k1 = sum(e.time_range.end - e.time_range.start for e in kern if "flash_fwd" in e.name)
+    wall = (t2 - t0) * 1e6
+    print(f"[serve] profile of one warm stream (engine, no HTTP): {len(chunks)} chunks, first "
+          f"chunk {(t1 - t0) * 1e3:.1f} ms, whole stream {wall / 1e3:.1f} ms; device busy "
+          f"{busy / 1e3:.1f} ms ({100 * (1 - busy / wall):.1f} % idle), {len(kern)} device "
+          f"ops; K1 {k1 / 1e3:.3f} ms, K4 {k4 / 1e3:.3f} ms (device time); windows after "
+          f"the first {[round((b - a) * 1e3, 1) for a, b in zip(marks, marks[1:])]} ms; "
+          f"on {smi}")
+    for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"[serve]   host {e.self_cpu_time_total / 1e3:8.3f} ms self CPU, {e.count:5d} "
+              f"calls  {e.key[:80]}")
+
+
+def serve_path(smi):
+    """Phase [serve]: the flagship FastSpeech2 (seed 0, duration bias ln 5)
+    and HiFi-GAN V1 (seed 1) in f32 behind `ServingEngine` (text buckets
+    16/32/64/128, 12 frames per phone) + `DynamicBatcher` (max batch 8,
+    5 ms window, queue cap 64) + `cli.serve.make_server` on an ephemeral
+    port: /health; 32 POST /synthesize from 16 client threads (fusion, K1 and
+    K4 launches exactly 10 and 2 per dispatch); the kernel engine against a
+    plain-path engine from the same weights; one POST /synthesize_streaming
+    against the one-shot vocode of its trimmed mel; a barycenter voice built by
+    `cli.build_distribution` served as speaker_emb; a bf16 engine; latencies,
+    req/s, first-audio time, and K1's and K4's device time per B = 1 request at
+    bucket 128. Returns the kernels-line fields of K1 and K4."""
+    import base64
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.cli.build_distribution import main as build_distribution
+    from masg_tpu_torch.cli.examples_gen_distri import load_distribution
+    from masg_tpu_torch.cli.serve import make_server, request_to_ids
+    from masg_tpu_torch.compat.from_jax import with_duration_bias
+    from masg_tpu_torch.distributions.wasserstein import metadata_corners
+    from masg_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
+    from masg_tpu_torch.infer.synthesis import load_model
+    from masg_tpu_torch.infer.vocoder import (get_vocoder, measure_receptive_field_frames,
+                                              vocoder_infer)
+    from masg_tpu_torch.ops.gmm import sample as gmm_sample
+
+    cfg = flagship_config()
+    sd = with_duration_bias(load_model(cfg, device=DEVICE, seed=0).state_dict(),
+                            math.log(5.0))
+
+    def make_engine(kernels, dtype=torch.float32, with_vocoder=True):
+        vocoder = (get_vocoder(cfg.model, device=DEVICE, fused_mrf=kernels, seed=1)
+                   if with_vocoder else None)
+        return ServingEngine(cfg, state_dict=sd, vocoder=vocoder, text_buckets=SERVE_BUCKETS,
+                             frames_per_phone=SERVE_FPP, dtype=dtype, device=DEVICE,
+                             use_flash=kernels)
+
+    def one_shot_of_trimmed_mel(engine, mel_engine, ids, speaker_id=0):
+        """The streaming reference: the mel-only engine's trimmed mel (the same
+        weights, dtype and kernels as `engine`), vocoded in one shot."""
+        r = mel_engine.synthesize(ids, speaker_id=speaker_id)
+        mel = torch.from_numpy(r["mel"])[None].to(DEVICE)
+        return r["bucket"], r["mel_len"], vocoder_infer(mel, engine.vocoder)[0]
+
+    engine = make_engine(True)
+    batcher = DynamicBatcher(engine, max_batch=8, window_ms=5.0, max_queue=64)
+    t0 = time.perf_counter()
+    warm = engine.warmup(include_speaker_emb=True, batch_sizes=SERVE_LADDER)
+    print(f"[serve] warm-up of {len(warm)} (B, L) buckets in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"B={b} L={n} T={engine.mel_caps[n]} {s * 1e3:.1f} ms"
+                      for (b, n), s in warm.items()))
+    srv = make_server(batcher, "127.0.0.1", 0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=os.path.join(REPO, "build"))
+    try:
+        code, _, body = _http(url, "/health")
+        health = json.loads(body)
+        assert code == 200 and health["buckets"] == {"16": 256, "32": 384, "64": 768,
+                                                     "128": 1000}, (code, health)
+        print(f"[serve] /health: {health}")
+
+        # 16 clients x 2 POST /synthesize, random phones, speakers and controls
+        rng = np.random.default_rng(7)
+        pool = _phone_pool()
+        reqs = []
+        for i in range(32):
+            payload = {"phones": "{" + " ".join(rng.choice(pool, rng.integers(10, 121))) + "}",
+                       "speaker_id": int(rng.integers(0, 16))}
+            if i % 3 == 0:
+                payload.update(pitch_control=1.2, energy_control=0.9, duration_control=0.9)
+            reqs.append(payload)
+        out, errors = [None] * 32, []
+
+        def client(k):
+            try:
+                for i in (2 * k, 2 * k + 1):
+                    t = time.perf_counter()
+                    code, headers, body = _http(url, "/synthesize", reqs[i])
+                    out[i] = (code, headers, body, time.perf_counter() - t)
+            except Exception as e:  # re-raised in the main thread below
+                errors.append(e)
+
+        n_req0, n_batch0 = engine.n_requests, engine.n_batches
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if errors:
+            raise errors[0]
+        assert not any(c.is_alive() for c in clients), "a client thread hung"
+        n_req, n_disp = engine.n_requests - n_req0, engine.n_batches - n_batch0
+        for i, (code, headers, body, _) in enumerate(out):
+            assert code == 200, (i, code, body[:200])
+            pcm = _wav_pcm(body)
+            assert pcm.size == int(headers["X-Mel-Len"]) * HOP > 0, i
+        lat = sorted(x[3] for x in out)
+        assert n_req == 32 and n_disp < n_req, (n_req, n_disp)
+        assert counts == {"K1": 10 * n_disp, "K2": 0, "K3": 0, "K4": 2 * n_disp}, (counts,
+                                                                                 n_disp)
+        serve_launches = counts
+        print(f"[serve] 32 POST /synthesize from 16 clients: all 200 with RIFF wavs, "
+              f"{n_disp} batched dispatches for {n_req} requests, launches {counts} "
+              f"(10 K1 and 2 K4 per dispatch); {32 / wall:.2f} req/s ({wall:.2f} s), "
+              f"latency p50 {statistics.median(lat) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.1f} ms, max {lat[-1] * 1e3:.1f} ms; on {smi}")
+
+        # the kernel path against the plain path, from the same weights
+        plain = make_engine(False)
+        ids_by_bucket = {n: request_to_ids({"phones": "{" + " ".join(
+            rng.choice(pool, n - 3)) + "}"})[0] for n in SERVE_BUCKETS}
+        for n, ids in ids_by_bucket.items():
+            k, p = engine.synthesize(ids, speaker_id=3), plain.synthesize(ids, speaker_id=3)
+            assert k["bucket"] == n and k["mel_len"] == p["mel_len"] > 0, (n, k["mel_len"],
+                                                                          p["mel_len"])
+            err = _max_lsb(k["wav"], p["wav"])
+            print(f"[serve] bucket {n}: kernel vs plain engine, mel_len {k['mel_len']} "
+                  f"identical, max|wav err| {err} LSB (tol 2)")
+            assert err <= 2, (n, err)
+        many_reqs = [{"ids": request_to_ids({"phones": r["phones"]})[0],
+                      "speaker_id": r["speaker_id"]} for r in reqs[:8]]
+        many, many_plain = engine.synthesize_many(many_reqs), plain.synthesize_many(many_reqs)
+        del plain
+        worst = worst_plain = 0
+        for r, m, mp in zip(many_reqs, many, many_plain):
+            s = engine.synthesize(r["ids"], speaker_id=r["speaker_id"])
+            assert s["mel_len"] == m["mel_len"] == mp["mel_len"], (s["mel_len"], m["mel_len"],
+                                                                   mp["mel_len"])
+            worst = max(worst, _max_lsb(s["wav"], m["wav"]))
+            worst_plain = max(worst_plain, _max_lsb(mp["wav"], m["wav"]))
+        print(f"[serve] synthesize_many of 8 (B=8 at bucket {many[0]['bucket']}): mel_len "
+              f"identical to the plain engine's B=8 dispatch and to the 8 single requests, "
+              f"max|wav err| {worst_plain} LSB against the plain dispatch, {worst} LSB against "
+              f"the single requests (tol 2)")
+        assert worst <= 2 and worst_plain <= 2, (worst, worst_plain)
+
+        # streaming at bucket 128: the first request pays the receptive-field
+        # probes and cuDNN's plans for the new window shapes; a second is warm
+        payload = {"phones": "{" + " ".join(rng.choice(pool, 110)) + "}", "speaker_id": 5}
+        streams = [_stream(url, payload) for _ in range(2)]
+        stream = streams[0][0]
+        assert np.array_equal(stream, streams[1][0]), "two streams of one request differ"
+        ids = request_to_ids(payload)[0]
+        mel_engine = make_engine(True, with_vocoder=False)
+        bucket, mel_len, full = one_shot_of_trimmed_mel(engine, mel_engine, ids, speaker_id=5)
+        del mel_engine
+        assert bucket == 128 and stream.shape == full.shape, (bucket, stream.shape, full.shape)
+        d = np.abs(stream.astype(np.int32) - full.astype(np.int32))
+        rf = measure_receptive_field_frames(engine.vocoder)  # cached by the first stream
+        (_, cold_first, cold_wall), (_, first_audio, stream_wall) = streams
+        print(f"[serve] POST /synthesize_streaming at bucket 128: {mel_len} frames, "
+              f"max|err| {d.max()} LSB against the one-shot vocode of the trimmed mel (tol 2), "
+              f"{(d > 0).mean():.4%} of samples differ; measured receptive field {rf} frames "
+              f"(context {rf + 2}); first audio {first_audio * 1e3:.1f} ms, whole stream "
+              f"{stream_wall * 1e3:.1f} ms (the first stream, with the field's probes and new "
+              f"window shapes: {cold_first * 1e3:.1f} / {cold_wall * 1e3:.1f} ms); on {smi}")
+        assert d.max() <= 2, d.max()
+        profile_stream(engine, ids, smi)
+
+        # a mid-attribute voice: the barycenter of the prior's metadata corners
+        cfg_dir = os.path.join(root, "cfg")
+        os.makedirs(cfg_dir)
+        for name in ("preprocess.yaml", "model.yaml", "train.yaml"):
+            with open(os.path.join(cfg_dir, name), "w") as f:
+                f.write("{}\n")
+        cfg.stats.dump(os.path.join(cfg_dir, "stats.json"))
+        with open(os.path.join(cfg_dir, "speakers.json"), "w") as f:
+            json.dump(cfg.speakers, f)
+        ckpt = os.path.join(root, "model.pth.tar")
+        torch.save({"model": {k: v.cpu() for k, v in sd.items()}}, ckpt)
+        npz = os.path.join(root, "neutral.npz")
+        gmm = build_distribution(["-c", cfg_dir, "--checkpoint", ckpt, "--device", DEVICE,
+                                  "--mode", "barycenter", "-o", npz])
+        emb = gmm_sample(load_distribution(npz), torch.Generator().manual_seed(0))
+        assert torch.isfinite(emb).all() and emb.shape == (1, 256), emb.shape
+        code, _, body = _http(url, "/synthesize", {"phones": reqs[0]["phones"], "format": "json",
+                                                   "speaker_emb": emb[0].tolist()})
+        assert code == 200, (code, body[:200])
+        r = json.loads(body)
+        pcm = _wav_pcm(base64.b64decode(r["wav_b64"]))
+        peak = int(np.abs(pcm.astype(np.int32)).max())
+        n_corners = len(metadata_corners(cfg.preprocess.speaker_generation.metadata))
+        print(f"[serve] cli.build_distribution --mode barycenter: {gmm.pi.shape[-1]} "
+              f"components over {n_corners} corners; a sampled voice served as speaker_emb: 200, "
+              f"mel_len {r['mel_len']}, peak {peak}")
+        assert r["mel_len"] > 0 and peak > 100, (r["mel_len"], peak)
+
+        # B = 1 latency per bucket, and K1/K4 device time per request at 128
+        p50 = {}
+        for n, ids in ids_by_bucket.items():
+            lats = [engine.synthesize(ids)["latency_s"] for _ in range(5)]
+            p50[n] = statistics.median(lats)
+        print("[serve] B=1 latency p50 of 5: " + ", ".join(
+            f"bucket {n} (T={engine.mel_caps[n]}) {s * 1e3:.1f} ms" for n, s in p50.items())
+            + f"; on {smi}")
+        reset_counts()
+        engine.synthesize(ids_by_bucket[128])
+        per_req = read_counts()
+        assert per_req == {"K1": 10, "K2": 0, "K3": 0, "K4": 2}, per_req
+        k1_dev = device_ms(lambda: engine.synthesize(ids_by_bucket[128]), 3, "flash_fwd")
+        k4_dev = device_ms(lambda: engine.synthesize(ids_by_bucket[128]), 3, "mrf_")
+        all_dev = device_ms(lambda: engine.synthesize(ids_by_bucket[128]), 3)
+        print(f"[serve] one B=1 request at bucket 128 (T=1000): device time K1 {k1_dev:.3f} ms "
+              f"(10 launches), K4 {k4_dev:.3f} ms (2 launches), all device work "
+              f"{all_dev:.3f} ms, latency p50 {p50[128] * 1e3:.1f} ms; on {smi}")
+
+        # dispatches of B = 8 / 16 / 32 at bucket 128: cli.serve's default
+        # --dynamic_batch 32 warms and dispatches up to B = 32
+        big = [{"ids": request_to_ids({"phones": "{" + " ".join(
+            rng.choice(pool, rng.integers(65, 121))) + "}"})[0],
+            "speaker_id": int(rng.integers(0, 16))} for _ in range(32)]
+        sweep = []
+        for b in (8, 16, 32):
+            t0 = time.perf_counter()
+            res = engine.synthesize_many(big[:b], batch_buckets=(b,))
+            cold = time.perf_counter() - t0
+            assert all(r["bucket"] == 128 and r["wav"].size == r["mel_len"] * HOP > 0
+                       for r in res), b
+            lats = [engine.synthesize_many(big[:b], batch_buckets=(b,))[0]["latency_s"]
+                    for _ in range(3)]
+            sweep.append(f"B={b} {statistics.median(lats) * 1e3:.1f} ms "
+                         f"({b / statistics.median(lats):.1f} req/s; first dispatch "
+                         f"{cold * 1e3:.1f} ms)")
+        print("[serve] one dispatch at bucket 128 (T=1000), median of 3 after one first: "
+              + ", ".join(sweep) + f"; on {smi}")
+
+        # bf16: an engine that casts the vocoder too
+        bf = make_engine(True, torch.bfloat16)
+        assert bf.vocoder.dtype == torch.bfloat16
+        bf.warmup(batch_sizes=(1,))
+        reset_counts()
+        for n in SERVE_BUCKETS:
+            w = bf.synthesize(ids_by_bucket[n])["wav"]
+            assert w.size > 0 and int(np.abs(w.astype(np.int32)).max()) > 100, n
+        counts_bf = read_counts()
+        assert counts_bf == {"K1": 40, "K2": 0, "K3": 0, "K4": 8}, counts_bf
+        ids = ids_by_bucket[128]
+        bstream = np.concatenate(list(bf.synthesize_streaming(ids)))
+        bf_mel_engine = make_engine(True, torch.bfloat16, with_vocoder=False)
+        _, _, bfull = one_shot_of_trimmed_mel(bf, bf_mel_engine, ids)
+        print(f"[serve] bfloat16 engine: 4 requests through the kernels (launches "
+              f"{counts_bf}), finite non-silent wavs; streaming vs one-shot max|err| "
+              f"{_max_lsb(bstream, bfull)} LSB (not gated; receptive field measured in "
+              f"bfloat16 {measure_receptive_field_frames(bf.vocoder)} frames)")
+        del bf, bf_mel_engine
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=30)
+        batcher.close()
+        shutil.rmtree(root)
+    return {"launches": serve_launches, "n_dispatches": n_disp,
+            "per_request_bucket128": {"K1": {"launches": per_req["K1"], "device_ms": k1_dev},
+                                      "K4": {"launches": per_req["K4"], "device_ms": k4_dev}}}
+
+
 def main() -> int:
     import torch
 
@@ -1241,6 +1634,11 @@ def main() -> int:
     results = main_path(smi)
     profile_inference(results, smi)
     entries = main_path_kernel_times(results, mrf)
+    serve = serve_path(smi)
+    for e, name in zip(entries, ("K1", "K4")):
+        e["serve"] = {"launches": serve["launches"][name],
+                      "dispatches": serve["n_dispatches"],
+                      "per_request_bucket128": serve["per_request_bucket128"][name]}
     train = train_path(smi)
     profile_train_step(train, smi)
     trainer_path()

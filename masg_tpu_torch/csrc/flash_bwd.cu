@@ -840,12 +840,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
 template <int DH, int RI>
 int launch_dq_tiles(const Args& a) {
   static std::atomic<uint64_t> attrs_set{0};
@@ -875,7 +869,9 @@ int launch_dq(const Args& a) {
 template <int DH>
 int launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_bytes<DH>();
-  if (int e = set_smem(flash_dkv_kernel<DH>, smem)) return e;
+  static std::atomic<uint64_t> attrs_set{0};
+  if (int e = once::set_attributes(attrs_set, a.device, flash_dkv_kernel<DH>, smem, false))
+    return e;
   const dim3 grid((a.t_len + KT - 1) / KT, a.bh);
   flash_dkv_kernel<DH><<<grid, KNT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -889,7 +885,9 @@ int launch_dkv(const Args& a) {
 template <int DH>
 int launch_dq_bf16(const Args& a) {
   const size_t smem = dq_bf16_smem_bytes<DH>();
-  if (int e = set_smem(flash_dq_bf16_kernel<DH>, smem)) return e;
+  static std::atomic<uint64_t> attrs_set{0};
+  if (int e = once::set_attributes(attrs_set, a.device, flash_dq_bf16_kernel<DH>, smem, false))
+    return e;
   const dim3 grid((a.t_len + TB - 1) / TB, a.bh);
   flash_dq_bf16_kernel<DH><<<grid, TNT, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
@@ -902,7 +900,9 @@ int launch_dq_bf16(const Args& a) {
 template <int DH>
 int launch_dkv_bf16(const Args& a) {
   const size_t smem = dkv_bf16_smem_bytes<DH>();
-  if (int e = set_smem(flash_dkv_bf16_kernel<DH>, smem)) return e;
+  static std::atomic<uint64_t> attrs_set{0};
+  if (int e = once::set_attributes(attrs_set, a.device, flash_dkv_bf16_kernel<DH>, smem, false))
+    return e;
   const dim3 grid((a.t_len + TB - 1) / TB, a.bh);
   flash_dkv_bf16_kernel<DH><<<grid, TNT, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),

@@ -460,12 +460,11 @@ int launch_f32(const void* q, const void* k, const void* v, const int* lens, voi
 
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, const int* lens, void* o,
-                float* lse, int bh, int heads, int t_len, cudaStream_t stream) {
+                float* lse, int bh, int heads, int t_len, int device, cudaStream_t stream) {
+  static std::atomic<uint64_t> attrs_set{0};
   const size_t smem = bf16_smem_bytes<DH>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (int e = once::set_attributes(attrs_set, device, flash_fwd_bf16_kernel<DH>, smem, false))
+    return e;
   const dim3 grid((t_len + TQ - 1) / TQ, bh);
   using bf = __nv_bfloat16;
   flash_fwd_bf16_kernel<DH><<<grid, TNT, smem, stream>>>(
@@ -478,7 +477,7 @@ template <int DH>
 int launch(int dtype, const void* q, const void* k, const void* v, const int* lens,
            void* o, float* lse, int bh, int heads, int t_len, int device, cudaStream_t s) {
   if (dtype == 0) return launch_f32<DH>(q, k, v, lens, o, lse, bh, heads, t_len, device, s);
-  if (dtype == 1) return launch_bf16<DH>(q, k, v, lens, o, lse, bh, heads, t_len, s);
+  if (dtype == 1) return launch_bf16<DH>(q, k, v, lens, o, lse, bh, heads, t_len, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

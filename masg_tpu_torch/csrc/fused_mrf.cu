@@ -525,12 +525,12 @@ int launch_f32(const void* x, void* out, const void* w, const float* bias, float
 
 template <int C>
 int launch_bf16(const void* x, void* out, const void* w, const float* bias, float* acc,
-                int b, int t_len, const MrfParams& p, cudaStream_t stream) {
+                int b, int t_len, const MrfParams& p, int device, cudaStream_t stream) {
   using G = TGeo<C>;
+  static std::atomic<uint64_t> attrs_set{0};
   if (acc == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      mrf_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
-  if (e != cudaSuccess) return (int)e;
+  if (int e = once::set_attributes(attrs_set, device, mrf_bf16_kernel<C>, G::SMEM, false))
+    return e;
   const dim3 grid((t_len + G::TILE - 1) / G::TILE, b);
   mrf_bf16_kernel<C><<<grid, BNT, G::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
@@ -542,7 +542,7 @@ template <int C>
 int launch(int dtype, const void* x, void* out, const void* w, const float* bias, float* acc,
            int b, int t_len, const MrfParams& p, int device, cudaStream_t s) {
   if (dtype == 0) return launch_f32<C>(x, out, w, bias, acc, b, t_len, p, device, s);
-  if (dtype == 1) return launch_bf16<C>(x, out, w, bias, acc, b, t_len, p, s);
+  if (dtype == 1) return launch_bf16<C>(x, out, w, bias, acc, b, t_len, p, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,5 @@
-// Launch helpers shared by the f32 launchers (K1 in flash_fwd.cu, K2 in
-// flash_bwd.cu, K4 in fused_mrf.cu): a kernel's function attributes are set
+// Launch helpers shared by every launcher, f32 and bf16 (K1 in flash_fwd.cu,
+// K2 and K3 in flash_bwd.cu, K4 in fused_mrf.cu): a kernel's function attributes are set
 // once per process and device, and the SM count is read once per device, so a
 // launch makes no runtime call besides the launch itself and
 // cudaGetLastError. The device index comes from the caller (the wrapper runs

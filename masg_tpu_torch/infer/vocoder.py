@@ -1,17 +1,19 @@
 """Vocoder loading + batched mel->wav inference (port of
 masg_tpu/infer/vocoder.py).
 
-Reference: utils/model.py:42-92. Honours the HiFi-GAN config.json schema and
+Reference: utils/model.py:42-92. Honours the HiFi-GAN config.json schema,
 the upstream torch checkpoint format (`{'generator': state_dict}`, weight
-norm folded at load). MelGAN, flax `.msgpack` checkpoints and streaming
-vocoding are queued in ROADMAP.md.
+norm folded at load) and masg_tpu's flax `.msgpack` generator files. Streams
+the vocoder in receptive-field-exact windows (`vocode_streaming`). MelGAN is
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +48,10 @@ class Vocoder:
     @property
     def device(self) -> torch.device:
         return self.generator.conv_pre.weight.device
+
+    @property
+    def n_mels(self) -> int:
+        return self.generator.conv_pre.in_channels
 
     @torch.inference_mode()
     def __call__(self, mel: torch.Tensor) -> torch.Tensor:
@@ -104,12 +110,20 @@ def get_vocoder(model_config, config_dir: Optional[str] = None,
 
 
 def load_generator_checkpoint(path: str, cfg: dict) -> dict:
-    """Generator state_dict from an upstream torch `{'generator': state_dict}`
-    file, weight norm folded (weight_g/weight_v -> weight)."""
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            "flax .msgpack vocoder checkpoints are not read by the port yet "
-            "(ROADMAP.md, port queue)")
+    """Generator state_dict from either checkpoint format: an upstream torch
+    `{'generator': state_dict}` file, weight norm folded (weight_g/weight_v ->
+    weight), or a flax `.msgpack` of masg_tpu's generator params (what
+    `masg_tpu.cli.train_vocoder` writes), whatever the file's suffix. The
+    format is read from the file's header, as masg_tpu does: a torch file
+    starts with `PK` (zip) or `\x80` (pickle)."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if not (head.startswith(b"PK") or head.startswith(b"\x80")):
+        from ..compat.from_jax import hifigan_state_dict_from_jax
+
+        with open(path, "rb") as f:
+            tree = read_flax_msgpack(f.read())
+        return hifigan_state_dict_from_jax(tree)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("generator", ckpt)
     n_res = len(cfg["resblock_kernel_sizes"])
@@ -127,14 +141,158 @@ def load_generator_checkpoint(path: str, cfg: dict) -> dict:
     return out
 
 
+def read_flax_msgpack(data: bytes) -> dict:
+    """A tree of numpy arrays from the bytes of `flax.serialization.to_bytes`:
+    msgpack maps, with each array as ext type 1 holding msgpack's (shape,
+    dtype name, raw bytes) and each numpy scalar as ext type 3 in the same
+    form. Flax's chunked form of arrays over 1 GiB raises: a generator never
+    has one."""
+    import msgpack
+
+    def ndarray(payload: bytes) -> np.ndarray:
+        shape, name, buf = msgpack.unpackb(payload, raw=True)
+        name = name.decode()
+        if name == "bfloat16":
+            raise ValueError("bfloat16 arrays in a .msgpack generator file are not read; "
+                             "save the generator's params as float32")
+        return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
+
+    def ext_hook(code: int, payload: bytes):
+        if code == 1:
+            return ndarray(payload)
+        if code == 3:
+            return ndarray(payload)[()]
+        raise ValueError(f"unsupported msgpack ext type {code} in a flax checkpoint")
+
+    tree = msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
+
+    def check(node):
+        if isinstance(node, dict):
+            if "__msgpack_chunked_array__" in node:
+                raise ValueError("flax's chunked-array form (arrays over 1 GiB) is not "
+                                 "read: a HiFi-GAN generator has no such array")
+            for v in node.values():
+                check(v)
+
+    if not isinstance(tree, dict):
+        raise ValueError("a flax .msgpack checkpoint holds a tree of dicts")
+    check(tree)
+    return tree
+
+
+def to_int16(wav: np.ndarray, max_wav_value: float) -> np.ndarray:
+    """Float wav in [-1, 1] -> int16 samples; clipped before the cast, since
+    loud samples would integer-wrap otherwise."""
+    return np.clip(wav * max_wav_value, -32768, 32767).astype(np.int16)
+
+
 def vocoder_infer(mels: torch.Tensor, vocoder: Vocoder,
                   lengths: Optional[Sequence[int]] = None) -> List[np.ndarray]:
     """(B, T, n_mels) -> list of int16 wavs, truncated to `lengths` samples
     (reference vocoder_infer, utils/model.py:74-92)."""
-    wavs = vocoder(mels).float().cpu().numpy()
-    # clip before the int16 cast: loud samples would integer-wrap otherwise
-    wavs = np.clip(wavs * vocoder.max_wav_value, -32768, 32767).astype("int16")
-    out = list(wavs)
+    out = list(to_int16(vocoder(mels).float().cpu().numpy(), vocoder.max_wav_value))
     if lengths is not None:
         out = [w[: int(n)] for w, n in zip(out, lengths)]
     return out
+
+
+def measure_receptive_field_frames(vocoder: Vocoder, probe_frames: int = 257,
+                                   lock=None) -> int:
+    """Mel-frame receptive-field radius of the loaded generator, measured
+    empirically (the support of an impulse's response), so streaming context
+    adapts to any convolutional vocoder instead of assuming the stock V1
+    architecture (~15 frames). Cached per Vocoder (`_rf_frames`). `lock`, when
+    given, is held around each vocoder run."""
+    cached = getattr(vocoder, "_rf_frames", None)
+    if cached is not None:
+        return cached
+    h = vocoder.hop_length
+    center = probe_frames // 2
+    base = torch.zeros((1, probe_frames, vocoder.n_mels), dtype=torch.float32)
+    probe = base.clone()
+    probe[0, center, :] = 1.0
+    with lock or contextlib.nullcontext():
+        d = (vocoder(probe)[0].float() - vocoder(base)[0].float()).abs().cpu().numpy()
+    nz = np.nonzero(d > 1e-12)[0]
+    if nz.size == 0:
+        rf = 1  # degenerate (e.g. zero weights)
+    else:
+        lo, hi = int(nz[0]), int(nz[-1])
+        if lo == 0 or hi == d.size - 1:
+            raise ValueError(
+                f"vocoder receptive field exceeds the {probe_frames}-frame "
+                "probe: pass context_frames explicitly")
+        rf = max((center * h - lo + h - 1) // h, (hi - center * h) // h + 1)
+    vocoder._rf_frames = int(rf)
+    return vocoder._rf_frames
+
+
+def vocode_streaming(vocoder: Vocoder, mel, chunk_frames: int = 192,
+                     context_frames: Optional[int] = None,
+                     lock=None) -> Iterator[np.ndarray]:
+    """Stream the vocoder: yield int16 wav chunks whose concatenation equals
+    `vocoder_infer` on the full mel (masg_tpu's window scheme).
+
+    The generator is fully convolutional, so an interior output sample depends
+    only on the mel frames within its receptive field; `context_frames`
+    defaults to the measured field + 2 (`measure_receptive_field_frames`).
+    Windows: the first chunk K + C frames (the true left edge), interior
+    chunks K + 2C, the final one right-aligned at the true end with the same
+    K + 2C shape; an input of 2C < t <= K + 2C frames goes as two edge-aligned
+    zero-padded K + 2C windows, and one of t <= 2C at its own length. So the
+    generator's own edge padding applies exactly as in the full run, and only
+    two window shapes occur whatever the input length.
+
+    mel: (1, T, n_mels) log-mel, numpy or tensor. `lock`, when given, is held
+    around each window's vocoder run (requests interleave between windows).
+    Yields np.int16 arrays; nothing for an empty mel.
+    """
+    mel = torch.as_tensor(mel)
+    if mel.dim() != 3 or mel.shape[0] != 1:
+        raise ValueError("vocode_streaming expects a single utterance (1, T, n_mels)")
+    if context_frames is None:
+        context_frames = measure_receptive_field_frames(vocoder, lock=lock) + 2
+    if chunk_frames < 1 or context_frames < 0:
+        raise ValueError(
+            f"chunk_frames must be >= 1 and context_frames >= 0 "
+            f"(got {chunk_frames}, {context_frames})")
+    t = mel.shape[1]
+    k, c = chunk_frames, context_frames
+    h = vocoder.hop_length
+    s = k + 2 * c  # the interior window shape
+    mel = mel.float()
+
+    def run(window: torch.Tensor) -> np.ndarray:
+        with lock or contextlib.nullcontext():
+            wav = vocoder(window)[0].float().cpu().numpy()
+        return to_int16(wav, vocoder.max_wav_value)
+
+    if t == 0:
+        return
+    if t <= 2 * c:
+        # too short to split exactly: vocode at its own length
+        yield run(mel)
+        return
+
+    if t <= s:
+        # one-chunk inputs still take the interior shape: two edge-aligned
+        # zero-padded windows whose kept regions stay >= c frames away from
+        # the padded side, so each true edge sees the generator's own padding
+        left = torch.nn.functional.pad(mel, (0, 0, 0, s - t))
+        yield run(left)[: (t - c) * h]
+        right = torch.nn.functional.pad(mel, (0, 0, s - t, 0))
+        yield run(right)[(s - c) * h:]
+        return
+
+    # first chunk: the true left edge, C frames of right context (K + C)
+    yield run(mel[:, : k + c])[: k * h]
+    pos = k
+    # interior chunks: C real frames of context on each side (K + 2C)
+    while pos + k + c <= t:
+        yield run(mel[:, pos - c: pos + k + c])[c * h: (c + k) * h]
+        pos += k
+    remaining = t - pos
+    if remaining > 0:
+        # final chunk right-aligned at the true end (the interior shape):
+        # keeps >= C frames of left context since remaining <= K + C
+        yield run(mel[:, t - s:])[(s - remaining) * h:]

@@ -7,6 +7,8 @@ tests/conftest.py imports) and pytest-xdist may be absent:
         tests/test_torch_port_cuda.py
 """
 
+import os
+
 import pytest
 import torch
 
@@ -339,3 +341,49 @@ def test_f32_fused_mrf_matches_plain_over_tiles_and_edges(c, t):
         y_cut = fused_mrf_stage(x[:, s0:].contiguous(), blocks, ks, ds)
         assert torch.equal(y_cut[:, 65:], y[:, s0 + 65:])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_streaming_vocoder_on_the_card_matches_one_shot():
+    """V1 at full width on the card, f32 (K4 in the two narrow stages, cuDNN
+    in the wide ones): the streamed wav against the one-shot vocode of the
+    same mel within 2 LSB (window and full-length shapes may take other cuDNN
+    algorithms), and the receptive field measured on the card equals the
+    CPU's for the same weights (outside the field the probe and the base run
+    see the same inputs, so the card must give the same bits there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import copy
+
+    import numpy as np
+
+    from masg_tpu_torch.infer.vocoder import (Vocoder, measure_receptive_field_frames,
+                                              vocode_streaming, vocoder_infer)
+    from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = HiFiGANGenerator()
+    init_random_weights(gen, torch.Generator().manual_seed(1))
+    cpu = Vocoder(copy.deepcopy(gen))
+    card = Vocoder(gen.cuda())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    try:
+        rf_cpu = measure_receptive_field_frames(cpu)
+    finally:
+        torch.set_num_threads(threads)
+    rf = measure_receptive_field_frames(card)
+    assert rf == rf_cpu, (rf, rf_cpu)
+    for t in (700, 576, 193, 100):
+        mel = torch.randn(1, t, 80, generator=torch.Generator().manual_seed(t))
+        full = vocoder_infer(mel.cuda(), card)[0]
+        n0 = fused_mrf_stage.launches
+        chunks = list(vocode_streaming(card, mel, chunk_frames=192))
+        assert fused_mrf_stage.launches - n0 == 2 * len(chunks)
+        stream = np.concatenate(chunks)
+        assert stream.shape == full.shape
+        assert np.abs(full.astype(np.int32)).max() > 1000
+        diff = np.abs(stream.astype(np.int32) - full.astype(np.int32))
+        assert diff.max() <= 2, (t, int(diff.max()), float((diff > 0).mean()))

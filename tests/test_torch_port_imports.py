@@ -58,7 +58,7 @@ def test_every_module_imports_with_jax_and_masg_tpu_blocked():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 48
+    assert int(r.stdout.strip().splitlines()[-1]) >= 55
 
 
 def _tiny_cfg():
@@ -76,7 +76,7 @@ def _tiny_cfg():
     return cfg
 
 
-def test_entry_points_need_a_card_unless_asked_for_cpu():
+def test_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from masg_tpu_torch.infer.synthesis import load_model
@@ -90,20 +90,59 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     model = load_model(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 
+    from masg_tpu_torch.infer.serving import ServingEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, vocoder=None)
+    engine = ServingEngine(cfg, vocoder=None, text_buckets=(16,), device="cpu")
+    assert engine.device.type == "cpu"
+
+    # the distribution CLIs run on the CPU when asked (cli.serve's engine is
+    # the ServingEngine above; its main blocks in serve_forever)
+    import json
+
+    import yaml
+
+    from masg_tpu_torch.cli import build_distribution, examples_gen, examples_gen_distri
+
+    tiny = {"transformer": {"encoder_layer": 1, "decoder_layer": 1, "encoder_hidden": 32,
+                            "decoder_hidden": 32, "conv_filter_size": 64},
+            "variance_predictor": {"filter_size": 32}, "max_seq_len": 64}
+    for name, body in (("preprocess.yaml", {}), ("model.yaml", tiny), ("train.yaml", {})):
+        (tmp_path / name).write_text(yaml.safe_dump(body))
+    (tmp_path / "speakers.json").write_text(json.dumps({"a": [0, "M", "ja"]}))
+    cpu = ["-c", str(tmp_path), "--device", "cpu"]
+    build_distribution.main([*cpu, "-o", str(tmp_path / "d.npz")])
+    examples_gen_distri.main([*cpu, "--no_vocoder", "-d", str(tmp_path / "d.npz"),
+                              "--n_speakers", "1", "--output_path", str(tmp_path / "o1")])
+    examples_gen.main([*cpu, "--no_vocoder", "--output_path", str(tmp_path / "o2")])
+    assert (tmp_path / "o1" / "gen001.npy").exists()
+    assert (tmp_path / "o2" / "a.npy").exists() and (tmp_path / "o2" / "F_engen001.npy").exists()
+
 
 def test_cli_device_flag_defaults_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     import json
 
-    from masg_tpu_torch.cli.speaker_gen import main
+    from masg_tpu_torch.cli import (build_distribution, examples_gen, examples_gen_distri,
+                                    serve, speaker_gen)
 
     for name in ("preprocess.yaml", "model.yaml", "train.yaml"):
         (tmp_path / name).write_text("{}\n")
     (tmp_path / "speakers.json").write_text(json.dumps({"a": [0, "M", "ja"]}))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["-c", str(tmp_path), "-o", str(tmp_path / "spk.npy")])
-    assert not (tmp_path / "spk.npy").exists()
+    out = tmp_path / "out"
+    cases = [
+        (speaker_gen, ["-o", str(out / "spk.npy")]),
+        (serve, ["--port", "0"]),
+        (build_distribution, ["-o", str(out / "d.npz")]),
+        (examples_gen, ["--output_path", str(out)]),
+        (examples_gen_distri, ["-d", str(out / "d.npz"), "--output_path", str(out)]),
+    ]
+    for cli, args in cases:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["-c", str(tmp_path), *args])
+    assert not out.exists()
 
 
 def test_unported_flags_raise_not_implemented():
@@ -117,6 +156,11 @@ def test_unported_flags_raise_not_implemented():
     cfg.model.vocoder.model = "MelGAN"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_vocoder(cfg.model, device="cpu")
+
+    from masg_tpu_torch.cli.serve import main as serve
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        serve(["-c", "unused", "--device", "cpu", "--data_parallel"])
 
 
 def test_kernel_loader_raises_without_nvcc():
