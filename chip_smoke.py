@@ -63,15 +63,36 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16-autocast steps against float32;
 9. a torch.profiler window over 3 kernel-path train steps per dtype: the
    device's idle share, K1's, K2's, K3's and the optimizer's device time;
+   `--param_storage bf16|bf16_moments` (bf16 parameters, f32 master, no
+   autocast): one step per mode with 10 launches each of K1-K3, all their
+   bf16 instantiations (kernel names in a profiler window), the dtypes of
+   parameters, master and moments, finite losses, steps/s;
 10. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
    and `cli.evaluate` on the saved step;
-11. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+11. [ge2e]: the GE2E trainer at masg_tpu's default width (SpeechEmbedder
+   80 -> 3 x 256 -> 64, N = 32 speakers x M = 10 chunks x 150 frames) on
+   chunk archives that `build_ge2e_corpus` writes from 32 synthetic
+   speakers' wavs: 3 steps on the card against the same 3 on the CPU, ms
+   per step, one DA-subroutine epoch and one `evaluate_eer`;
+12. [adversarial]: the `--use_clf` step (clf_featurization model and ge2e)
+   and the ganlike step at the flagship width and [train]'s batch (rows of
+   both languages, an injected speaker shuffle and label jitter), with a
+   GE2E discriminator of [ge2e]'s width: kernel vs plain path (losses with
+   dloss, every gradient of FastSpeech2 and, in ganlike, of the
+   discriminator, BatchNorm statistics; dropout off; the gradient of dloss
+   alone against the plain path in float32 and float64), exactly 20 launches
+   each of K1, K2 and K3 per step, ms per step on both paths, K1-K3's device
+   time per `--use_clf` step; then `cli.train_speech_embedder` (2 epochs),
+   `cli.train --use_clf` with its checkpoint and `cli.train_ganlike` (2
+   steps each, 40 launches each of K1-K3) on the card;
+13. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
    step; `serve`: K1's and K4's launches under the 32 served requests and
-   their device time per B=1 request at bucket 128);
-12. the `{"ok": true, ...}` line, last.
+   their device time per B=1 request at bucket 128; `adversarial`: K1's,
+   K2's and K3's launches and device time per float32 `--use_clf` step);
+14. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -101,6 +122,16 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
   2e-3 (masg_tpu's model-gradient-with-flash bar), BatchNorm statistics
   within 1e-5; 20 bf16-autocast steps within 25 % of float32's last loss
   (tests/test_train_step.py); resumed losses within 1e-5 relative.
+- adversarial steps float32: the train step's bars, dloss included; the
+  gradient of dloss alone (at step 0 the schedule weighs it by 2.1e-6 in
+  the total), per tensor of FastSpeech2 and, in ganlike, of the
+  discriminator, against the plain path in float32 and in float64: max|err|
+  within 2e-2 of the tensor's largest |gradient| plus 1e-6 of the part's
+  (one f32 ReLU flip moves an FFN conv's gradient by up to 8e-3 of its own;
+  gradients that are 0 in exact arithmetic hold to round-off).
+- GE2E float32, card vs CPU: (ge2e, da) losses of 3 steps within 1e-4
+  relative (cuDNN's LSTM and the CPU's sum in other orders, and 3 Adam
+  updates carry the difference on).
 """
 
 import json
@@ -180,12 +211,17 @@ def device_ms(fn, iters, match=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
+    # a window in which the profiler recorded no device activity at all is
+    # taken again: CUPTI has delivered no records for a whole window
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    kern = [e for e in dev if not getattr(e, "is_user_annotation", False)
             and (match is None or match in e.name)]
     assert kern, f"the profiler saw no device kernel matching {match!r}"
     return sum(e.time_range.end - e.time_range.start for e in kern) / iters / 1e3
@@ -935,7 +971,7 @@ def train_path(smi):
         for m in st.model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
-        total, losses, eloss, _ = make_train_step(st.model).loss_fn(st.model, db)
+        total, losses, eloss, _, _ = make_train_step(st.model).loss_fn(st.model, db)
         total.backward()
         sides.append((st.model, [float(x.detach()) for x in (total, *losses, eloss)]))
     (mk, lk), (mp, lp) = sides
@@ -1233,6 +1269,479 @@ def train_kernel_times(train, smi):
         print_path_fields(e["name"], "float32 train step", e["float32_train_step"],
                           "masked SDPA backward, K2 + K3")
     return entries, k1_train
+
+
+def param_storage_path(train, smi):
+    """[train], `--param_storage bf16|bf16_moments`: bf16 parameters with an
+    f32 master copy, the model computing in bf16 with no autocast. One step
+    per mode through the entry point (`train.state.create_train_state` +
+    `train.step.make_train_step`): 10 launches each of K1-K3, all of them
+    their bf16 instantiations (kernel names in a profiler window); the
+    dtypes (parameters bf16, master f32 within rtol 1e-2 of them, moments
+    per mode, BatchNorm statistics f32); finite losses; steps/s as [train]
+    times them, beside its f32 and bf16-autocast rows."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masg_tpu_torch.models import FastSpeech2
+    from masg_tpu_torch.train.state import create_train_state
+    from masg_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = flagship_config()
+    db = batch_to_device(train["batch"], DEVICE, torch.bfloat16)
+    for storage in ("bf16", "bf16_moments"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = FastSpeech2.from_config(cfg, use_flash=True)
+        model.to(DEVICE).to(torch.bfloat16)
+        st = create_train_state(model, cfg.train.optimizer, cfg.model.transformer.encoder_hidden,
+                                storage)
+        step = make_train_step(model)
+        reset_counts()
+        st, m = step(st, db, 0)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        assert counts == {"K1": 10, "K2": 10, "K3": 10, "K4": 0}, (storage, counts)
+        assert torch.isfinite(m.total) and torch.isfinite(m.grad_norm), storage
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, m = step(st, db, 1)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        names = [e.name for e in kern]
+        busy = _union_us([(e.time_range.start, e.time_range.end) for e in kern])
+        opt = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if getattr(e, "is_user_annotation", False)
+               and e.name.startswith("Optimizer.step")]
+        print(f"[profile] --param_storage {storage}, one step: wall {wall_us / 1e3:.1f} ms, "
+              f"device busy {busy / 1e3:.1f} ms ({100 * (1 - busy / wall_us):.1f} % idle), "
+              f"{len(kern)} device ops, optimizer step {sum(b - a for a, b in opt) / 1e3:.1f} "
+              f"ms of the wall; on {smi}")
+        for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+            bf16 = sum(1 for n in names if f"{kernel}_bf16_kernel" in n)
+            f32 = sum(1 for n in names if f"{kernel}_kernel<" in n)
+            assert bf16 == 10 and f32 == 0, (storage, kernel, bf16, f32)
+        assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+        assert all(x.dtype == torch.float32 for x in st.master)
+        np.testing.assert_allclose(next(model.parameters()).detach().float().cpu().numpy(),
+                                   st.master[0].cpu().numpy(), rtol=1e-2)
+        moment = st.optimizer.state[st.master[0]]["exp_avg"].dtype
+        assert moment == (torch.bfloat16 if storage == "bf16_moments" else torch.float32)
+        assert all(b.dtype == torch.float32 and bool(torch.isfinite(b).all())
+                   for n, b in model.named_buffers() if "running_" in n)
+        for i in range(2):
+            step(st, db, 2 + i)
+        walls = []
+        for r in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, db, 4 + r)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            assert torch.isfinite(m.total), (storage, r)
+        w = statistics.median(walls)
+        print(f"[train] --param_storage {storage}: launches per step {counts}, all bf16 "
+              f"instantiations; parameters bf16, master f32, moments {moment}; "
+              f"{1.0 / w:.2f} steps/s ({w * 1e3:.1f} ms median of 10; walls "
+              f"{[round(x * 1e3, 1) for x in walls]} ms; last loss {float(m.total):.4f}) "
+              f"against float32 {train['rates'][('float32', True)]:.2f} and bfloat16 "
+              f"autocast {train['rates'][('bfloat16', True)]:.2f} steps/s, kernel path; on "
+              f"{smi}")
+        del st, model, step
+
+
+GE2E_N, GE2E_M = 32, 10  # masg_tpu's N x M (train_speech_embedder defaults)
+
+
+def ge2e_corpus(root):
+    """GE2E chunk archives of 32 synthetic speakers (16 ja, 16 en), written by
+    the port's `build_ge2e_corpus` from 6-s wavs: a harmonic tone per speaker
+    with a silent gap, so the VAD finds two spans of two 150-frame chunks."""
+    import numpy as np
+
+    from masg_tpu_torch.audio.wavio import write_wav
+    from masg_tpu_torch.preprocessor.ge2e_preprocess import build_ge2e_corpus
+
+    rng = np.random.default_rng(7)
+    wav_dir = os.path.join(root, "wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    n = 6 * SAMPLE_RATE
+    t = np.arange(n) / SAMPLE_RATE
+    speakers = {}
+    for s in range(GE2E_N):
+        f0 = 90.0 + 6.0 * s
+        wav = sum(0.3 / h * np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 6.3))
+                  for h in (1, 2, 3)) + 0.02 * rng.normal(size=n)
+        wav[int(0.45 * n):int(0.55 * n)] = 0.0
+        path = os.path.join(wav_dir, f"s{s:02d}.wav")
+        write_wav(path, wav.astype(np.float32), SAMPLE_RATE)
+        speakers[f"s{s:02d}"] = ([path], "MF"[s % 2], "ja" if s < GE2E_N // 2 else "en")
+    chunks = os.path.join(root, "chunks")
+    written = build_ge2e_corpus(speakers, chunks, "SYNTH")
+    assert len(written) == GE2E_N, written
+    return chunks
+
+
+def ge2e_path(smi, root):
+    """Phase [ge2e]: the GE2E trainer at masg_tpu's default width
+    (SpeechEmbedder(80, 256, 3, 64), N = 32 x M = 10 chunks of 150 frames) on
+    a chunk archive from `build_ge2e_corpus`: 3 steps on the card against the
+    same 3 on the CPU (dropout off, TF32 off), ms per step (median of 10
+    after 2 warm-ups, dropout on), one DA-subroutine epoch and one
+    `evaluate_eer`. Returns the chunk directory."""
+    import copy
+
+    import torch
+
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+    from masg_tpu_torch.train.ge2e import (SpeakerChunkDataset, evaluate_eer,
+                                           make_ge2e_train_step, run_da_subroutine)
+
+    t0 = time.time()
+    chunks = ge2e_corpus(root)
+    ds = SpeakerChunkDataset(chunks, ["SYNTH"], m_utts=GE2E_M, seed=0)
+    batches = [ds.sample_batch(GE2E_N, variable_length=False) for _ in range(3)]
+    print(f"[ge2e] {len(ds)} speakers' chunk archives from build_ge2e_corpus in "
+          f"{time.time() - t0:.1f} s; batch {batches[0][0].shape}")
+    torch.manual_seed(1)
+    base = SpeechEmbedder()
+    losses = {}
+    for dev in (DEVICE, "cpu"):
+        emb = copy.deepcopy(base).to(dev)
+        for mod in emb.modules():
+            if isinstance(mod, torch.nn.Dropout):
+                mod.p = 0.0
+        init_state, step = make_ge2e_train_step(emb, GE2E_N, GE2E_M)
+        st = init_state()
+        losses[dev] = []
+        for mels, langs in batches:
+            st, loss, da = step(st, mels, langs, False)
+            losses[dev].append((float(loss), float(da)))
+    err = max(abs(a - b) / abs(b) for sa, sb in zip(losses[DEVICE], losses["cpu"])
+              for a, b in zip(sa, sb))
+    print(f"[ge2e] 3 steps, card vs CPU (dropout off): (ge2e, da) losses "
+          f"{[tuple(round(x, 5) for x in s) for s in losses[DEVICE]]} vs "
+          f"{[tuple(round(x, 5) for x in s) for s in losses['cpu']]}, max relative err "
+          f"{err:.3g} (tol 1e-4)")
+    assert err <= 1e-4, losses
+
+    emb = copy.deepcopy(base).to(DEVICE)
+    init_state, step = make_ge2e_train_step(emb, GE2E_N, GE2E_M)
+    st = init_state()
+    for i in range(2):
+        step(st, *batches[i % 3], False)
+    walls = []
+    for r in range(10):
+        mels, langs = batches[r % 3]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, loss, da = step(st, mels, langs, False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    w = statistics.median(walls)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(3):
+            st, loss, da = step(st, *batches[i], False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6 / 3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in kern]) / 3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 3
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:3]
+    print(f"[profile] GE2E step: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * (1 - busy / wall_us):.1f} % idle), {len(kern) // 3} device ops; heaviest "
+          + "; ".join(f"{t / 1e3:.2f} ms {n[:60]}" for n, t in top) + f"; on {smi}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = run_da_subroutine(st, ds, GE2E_N, batches=2, max_epochs=1)
+    torch.cuda.synchronize()
+    t_da = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    eer, thr = evaluate_eer(emb, ds, n_speakers=GE2E_N, m_utts=GE2E_M, epochs=1)
+    t_eer = time.perf_counter() - t1
+    assert math.isfinite(float(loss)) and 0.0 <= eer <= 1.0, (loss, eer)
+    print(f"[ge2e] train step {w * 1e3:.1f} ms median of 10 (walls "
+          f"{[round(x * 1e3, 1) for x in walls]} ms; N x M = {GE2E_N} x {GE2E_M}, 150 "
+          f"frames, dropout on); one DA-subroutine epoch of 2 batches {t_da * 1e3:.1f} ms; "
+          f"evaluate_eer (1 batch): EER {eer:.3f} at threshold {thr:.2f} in "
+          f"{t_eer * 1e3:.1f} ms; on {smi}")
+    return chunks
+
+
+def adversarial_batch():
+    """[train]'s batch with languages and genders that differ across rows, a
+    speaker shuffle (`reorder`) and the label jitter of 5 chunks a row."""
+    import numpy as np
+
+    batch = example_inputs(B=B, L=L, T=T_MEL)
+    rng = np.random.default_rng(11)
+    meta = np.zeros((B, 4), np.float32)
+    meta[np.arange(B), np.arange(B) % 2] = 1.0
+    meta[np.arange(B), 2 + (np.arange(B) // 2) % 2] = 1.0
+    batch["speaker_meta"] = meta
+    batch["reorder"] = rng.permutation(B).astype(np.int32)
+    batch["lang_jitter"] = rng.uniform(size=B * (T_MEL // 150 + 1)).astype(np.float32)
+    return batch
+
+
+def adversarial_state(cfg, variant, kernels, disc, dtype=None):
+    """(train state, step) of one adversarial variant on the card, FastSpeech2
+    from seed 0 (the same weights on both paths), dropout off; `dtype`
+    (float64) casts the model and the discriminator for a reference."""
+    import copy
+
+    import torch
+
+    from masg_tpu_torch.models import FastSpeech2
+    from masg_tpu_torch.models.ganlike import GANLike
+    from masg_tpu_torch.train.state import create_train_state
+    from masg_tpu_torch.train.step import make_ganlike_train_step, make_train_step
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = FastSpeech2.from_config(cfg, use_flash=kernels)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    model.to(DEVICE, dtype)
+    disc = copy.deepcopy(disc).to(DEVICE, dtype)
+    d_model = cfg.model.transformer.encoder_hidden
+    total_step = cfg.train.step.total_step
+    if variant == "ganlike":
+        gl = GANLike(model, disc)
+        st = create_train_state(gl, cfg.train.optimizer, d_model)
+        return st, make_ganlike_train_step(gl, total_step=total_step)
+    st = create_train_state(model, cfg.train.optimizer, d_model)
+    return st, make_train_step(model, use_clf=True, discriminator=disc, total_step=total_step,
+                               clf_featurization=variant.split("=")[1])
+
+
+def adversarial_branch_grads(st, step, db):
+    """{parameter name: gradient of dloss alone} on another forward pair. At
+    step 0 the schedule weighs dloss by tanh(10 / (2 total_step)) lambd / n
+    (2.1e-6 at 30000 steps and 80 chunks), so the gradient of the total
+    cannot show the adversarial branch: K1 in the speaker-shuffled forward,
+    its K2/K3 and, in ganlike, the whole of the discriminator's gradient."""
+    import torch
+
+    st.model.zero_grad(set_to_none=True)
+    dloss = step.loss_fn(st.model, db, 0)[3]
+    dloss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for n, p in st.model.named_parameters() if p.requires_grad}
+    st.model.zero_grad(set_to_none=True)
+    return grads
+
+
+BRANCH_RTOL = 2e-2
+
+
+def branch_grad_errs(got, want):
+    """`got` against `want`, gradients of the adversarial branch, per part
+    (ganlike: "model." and "discriminator."; --use_clf: the FastSpeech2
+    alone): the largest |gradient| G, the number of tensors the branch
+    reaches, and per tensor e = max|got - want| against the bar
+    BRANCH_RTOL max|want| + 1e-6 G. The first term is relative to the
+    tensor's own gradient: ReLU makes the gradient of the FFN's first conv
+    jump where a unit's input crosses 0, and f32 round-off flips 1-5 units
+    a layer between any two f32 paths (and between f32 and f64); one flip
+    moves that conv's gradient by up to 8e-3 of its largest entry. The G
+    term holds gradients that are 0 in exact arithmetic, such as the
+    key-projection biases under softmax, to the round-off of the sums that
+    cancel there."""
+    ganlike = any(n.startswith("discriminator.") for n in want)
+    parts = ("model.", "discriminator.") if ganlike else ("",)
+    out = {}
+    for part in parts:
+        names = [n for n in want if n.startswith(part)]
+        scale = {n: want[n].abs().max().item() for n in names}
+        err = {n: (got[n].to(want[n].dtype) - want[n]).abs().max().item() for n in names}
+        g = max(scale.values())
+        ratio = {n: err[n] / (BRANCH_RTOL * scale[n] + 1e-6 * g) for n in names}
+        worst = sorted(names, key=ratio.get, reverse=True)[:3]
+        out[part or "fastspeech2."] = {
+            "G": g, "reached": sum(v > 0 for v in scale.values()), "tensors": len(names),
+            "max_ratio": ratio[worst[0]],
+            "max_rel": max(err[n] / scale[n] for n in names if scale[n] > 1e-3 * g),
+            "worst": [(n, err[n], scale[n]) for n in worst]}
+    return out
+
+
+def adversarial_path(smi):
+    """Phase [adversarial]: the `--use_clf` step (clf_featurization model and
+    ge2e) and the ganlike step at the flagship width and [train]'s batch, a
+    GE2E discriminator of [ge2e]'s width, f32, dropout off, the same injected
+    reorder / label jitter: kernel path against plain path (losses with dloss,
+    every gradient, BatchNorm statistics), launches per step (K1, K2, K3: 20
+    each, two forwards of 10 FFT blocks), ms per step for both paths (median of
+    10), K1-K3 device time per `--use_clf` step (profiler window); then
+    `cli.train_speech_embedder` (2 epochs), `cli.train --use_clf` with its
+    checkpoint (2 steps) and `cli.train_ganlike` (2 steps) on the card.
+    Returns {kernel: {launches, device_ms_per_step}} of the `--use_clf` step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+    from masg_tpu_torch.train.step import batch_to_device
+
+    cfg = flagship_config()
+    db = batch_to_device(adversarial_batch(), DEVICE, torch.float32)
+    db64 = batch_to_device(adversarial_batch(), DEVICE, torch.float64)
+    torch.manual_seed(1)
+    disc = SpeechEmbedder()
+    kernel_fields = {}
+    for variant in ("use_clf, clf_featurization=model", "use_clf, clf_featurization=ge2e",
+                    "ganlike"):
+        sides = {}
+        for kernels in (True, False):
+            st, step = adversarial_state(cfg, variant, kernels, disc)
+            total, losses, eloss, dloss, _ = step.loss_fn(st.model, db, 0)
+            total.backward()
+            torch.cuda.synchronize()
+            vals = [float(x.detach()) for x in (total, *losses, eloss, dloss)]
+            grads = [p.grad.detach().clone() for p in st.params()]
+            bn = {n: b.clone() for n, b in st.model.named_buffers() if "running_" in n}
+            branch = adversarial_branch_grads(st, step, db)
+            reset_counts()
+            step(st, db, 0)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = 20 if kernels else 0
+            assert counts == {"K1": want, "K2": want, "K3": want, "K4": 0}, (variant, counts)
+            sides[kernels] = (st, step, vals, grads, bn, counts, branch)
+        (sk, stepk, lk, gk, bk, ck, rk), (sp, stepp, lp, gp, bp, _, rp) = (sides[True],
+                                                                        sides[False])
+        assert lk[-1] != 0.0, "dloss is 0"
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp))
+        grad_err = max((a - b).abs().max().item() for a, b in zip(gk, gp))
+        bn_err = max((bk[n] - bp[n]).abs().max().item() for n in bk)
+        print(f"[adversarial] {variant}, float32 kernel vs plain path, dropout off: losses "
+              f"(total, mel, postnet, pitch, energy, duration, eloss, dloss) "
+              f"{[round(x, 5) for x in lk]}, max relative err {loss_err:.3g} (tol 1e-5), "
+              f"max|grad err| {grad_err:.3g} over {len(gk)} tensors (tol 2e-3), "
+              f"max|BatchNorm statistics err| {bn_err:.3g} (tol 1e-5); launches per step "
+              f"{ck}")
+        st64, step64 = adversarial_state(cfg, variant, False, disc, torch.float64)
+        r64 = adversarial_branch_grads(st64, step64, db64)
+        del st64, step64
+        branch = {}
+        for pair, got, want in (("kernel vs plain", rk, rp), ("kernel vs float64 plain", rk, r64),
+                                ("plain vs float64 plain", rp, r64)):
+            branch[pair] = branch_grad_errs(got, want)
+            for part, b in branch[pair].items():
+                print(f"[adversarial] {variant}, gradient of dloss alone, {part}*, {pair}: "
+                      f"largest |gradient| G {b['G']:.4g}, {b['reached']} of {b['tensors']} "
+                      f"tensors reached; max|err| / max|grad| {b['max_rel']:.3g} over tensors "
+                      f"with max|grad| > 1e-3 G; worst max|err| / ({BRANCH_RTOL:g} max|grad| + "
+                      f"1e-6 G) {b['max_ratio']:.3g} (tol 1); worst (tensor, max|err|, "
+                      f"max|grad|) " + ", ".join(f"({n}, {e:.3g}, {g:.3g})"
+                                                 for n, e, g in b["worst"]))
+        assert loss_err <= 1e-5 and grad_err <= 2e-3 and bn_err <= 1e-5, (
+            variant, loss_err, grad_err, bn_err)
+        for pair in ("kernel vs plain", "kernel vs float64 plain"):
+            assert all(b["G"] > 0 and b["max_ratio"] <= 1.0 for b in branch[pair].values()), (
+                variant, pair, branch[pair])
+            assert set(branch[pair]) == ({"model.", "discriminator."} if variant == "ganlike"
+                                         else {"fastspeech2."}), sorted(branch[pair])
+        walls = {True: [], False: []}
+        for kernels in (True, False):
+            st, step = sides[kernels][:2]
+            for i in range(2):
+                step(st, db, 1 + i)
+        for r in range(10):
+            for kernels in ((True, False) if r % 2 == 0 else (False, True)):
+                st, step = sides[kernels][:2]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, db, 3 + r)
+                torch.cuda.synchronize()
+                walls[kernels].append(time.perf_counter() - t0)
+                assert torch.isfinite(m.total) and torch.isfinite(m.dloss), variant
+        med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+        print(f"[adversarial] {variant}: kernel path {med[True]:.1f} ms/step, plain path "
+              f"{med[False]:.1f} ms/step (medians of 10, in turns; kernel walls "
+              f"{[round(x * 1e3, 1) for x in walls[True]]} ms) on {smi}")
+        if variant.endswith("=model"):
+            st, step = sides[True][:2]
+            n = 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(n):
+                    step(st, db, 20 + i)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / n * 1e3
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)]
+            busy = _union_us([(e.time_range.start, e.time_range.end) for e in kern]) / n / 1e3
+            for name, match in (("K1", "flash_fwd"), ("K2", "flash_dq"), ("K3", "flash_dkv")):
+                dev = sum(e.time_range.end - e.time_range.start for e in kern
+                          if match in e.name) / n / 1e3
+                kernel_fields[name] = {"step": "--use_clf, clf_featurization=model, float32",
+                                       "launches": ck[name], "device_ms_per_step": dev}
+            lstm = sum(e.time_range.end - e.time_range.start for e in kern
+                       if "RNN" in e.name or "rnn" in e.name or "LSTM" in e.name) / n / 1e3
+            print(f"[profile] {variant} kernel path: wall {wall:.1f} ms/step, device busy "
+                  f"{busy:.1f} ms/step ({100 * (1 - busy / wall):.1f} % idle), "
+                  f"{len(kern) // n} device ops/step; K1 "
+                  f"{kernel_fields['K1']['device_ms_per_step']:.3f}, K2 "
+                  f"{kernel_fields['K2']['device_ms_per_step']:.3f}, K3 "
+                  f"{kernel_fields['K3']['device_ms_per_step']:.3f} ms/step; cuDNN RNN "
+                  f"kernels {lstm:.3f} ms/step; on {smi}")
+        del sides, sk, sp, stepk, stepp
+    return kernel_fields
+
+
+def adversarial_clis(chunks):
+    """`cli.train_speech_embedder` -> its checkpoint as `cli.train --use_clf`'s
+    discriminator_path -> `cli.train_ganlike`, all on the card."""
+    import tempfile
+
+    import torch
+
+    from masg_tpu_torch.cli.train import main as train_main
+    from masg_tpu_torch.cli.train_ganlike import main as ganlike_main
+    from masg_tpu_torch.cli.train_speech_embedder import main as embedder_main
+    from masg_tpu_torch.data.synthetic import write_config_dir, write_preprocessed_corpus
+
+    root = tempfile.mkdtemp(prefix="adv_", dir=os.path.dirname(chunks))
+    t0 = time.time()
+    st = embedder_main(["--data_path", chunks, "--datasets", "SYNTH", "--out_dir",
+                        os.path.join(root, "ge2e"), "--epochs", "2"])
+    ckpt = os.path.join(root, "ge2e", "final_epoch_2.pth")
+    assert os.path.exists(ckpt) and next(st.embedder.parameters()).device.type == DEVICE
+    t_ge2e = time.time() - t0
+    pre = write_preprocessed_corpus(os.path.join(root, "pre"), n_utts=32, n_speakers=4,
+                                    n_val=4, phones=(48, 120), frames_per_phone=(1, 5))
+    runs = {}
+    for name, cli, extra in (("cli.train --use_clf", train_main, ["--use_clf"]),
+                             ("cli.train_ganlike", ganlike_main, [])):
+        cfg_dir = write_config_dir(os.path.join(root, name.split()[0], "cfg"), pre,
+                                   os.path.join(root, name.split()[0], "out"),
+                                   step={"save_step": 2, "val_step": 1000},
+                                   train={"discriminator_path": ckpt})
+        reset_counts()
+        t0 = time.time()
+        state = cli(["-c", cfg_dir, "--max_steps", "2", *extra])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        losses = dict(_total_losses(cfg_dir))
+        assert state.step == 2 and counts == {"K1": 40, "K2": 40, "K3": 40, "K4": 0}, counts
+        assert sorted(losses) == [1, 2] and all(math.isfinite(v) for v in losses.values())
+        runs[name] = (time.time() - t0, counts, losses)
+    print(f"[adversarial] cli.train_speech_embedder: 2 epochs in {t_ge2e:.1f} s -> "
+          f"{os.path.basename(ckpt)}; " + "; ".join(
+              f"{n}: 2 steps in {t:.1f} s, launches {c}, losses "
+              f"{[round(v, 4) for v in ls.values()]}" for n, (t, c, ls) in runs.items()))
 
 
 SERVE_BUCKETS, SERVE_FPP, SERVE_LADDER = (16, 32, 64, 128), 12, (1, 2, 4, 8)
@@ -1640,11 +2149,25 @@ def main() -> int:
                       "dispatches": serve["n_dispatches"],
                       "per_request_bucket128": serve["per_request_bucket128"][name]}
     train = train_path(smi)
+    param_storage_path(train, smi)
     profile_train_step(train, smi)
     trainer_path()
     train_entries, k1_train = train_kernel_times(train, smi)
     entries[0]["float32_train_step"] = k1_train
     entries[1:1] = train_entries
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ge2e_", dir=os.path.join(REPO, "build"))
+    try:
+        chunks = ge2e_path(smi, root)
+        adversarial = adversarial_path(smi)
+        adversarial_clis(chunks)
+    finally:
+        shutil.rmtree(root)
+    for e, name in zip(entries[:3], ("K1", "K2", "K3")):
+        e["adversarial"] = adversarial[name]
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

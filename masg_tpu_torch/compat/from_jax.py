@@ -13,6 +13,10 @@ are the reference's torch names, so the result loads with `strict=True`:
   (k, in, out) -> (out, in, k), a transposed conv (k, in, out) -> (in, out, k);
 - `adam_state_from_jax` turns masg_tpu's Adam moments into the port's
   `torch.optim.Adam` state under the same mapping;
+- `ge2e_state_dict_from_jax` is a copy of masg_tpu's `export_torch_ge2e`
+  (GE2E `SpeechEmbedder`), `lang_discriminator_state_dict_from_jax` its
+  counterpart for `LangDiscriminator`; both split masg_tpu's folded LSTM
+  bias into torch's two;
 - `with_duration_bias` is the counterpart of masg_tpu.infer.serving's.
 
 Layouts: torch Linear weight (out, in) <- flax Dense kernel (in, out);
@@ -180,6 +184,55 @@ def hifigan_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Te
                         np.asarray(block[f"{cn}_{c}_kernel"]), (2, 1, 0)))
                     out[pre + ".bias"] = _t(block[f"{cn}_{c}_bias"])
     conv("conv_post", "conv_post")
+    return out
+
+
+def _lstm_layer(out: Dict[str, torch.Tensor], prefix: str, cell: Mapping[str, Any],
+                sfx: str) -> None:
+    """One flax `OptimizedLSTMCell` -> torch `nn.LSTM` layer `sfx` (a copy of
+    masg_tpu's `_lstm_cell_out`, compat/torch_fs2.py:244-262).
+
+    The gate kernels i{i,f,g,o} / h{i,f,g,o} (in, hidden) stack into
+    weight_ih / weight_hh (4 hidden, in) in torch's (i, f, g, o) row order.
+    masg_tpu keeps one bias per gate, the sum of torch's two; it is split
+    evenly, bias_ih = bias_hh = B / 2. That is the condition under which
+    masg_tpu's two-bias compat (train/optim.py:168-222: the folded bias's
+    doubled Adam update, half weight decay, double-counted clip norm) is
+    exact, and both halves then stay equal for the whole trajectory.
+    """
+    gates = ("i", "f", "g", "o")
+    wi = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates], axis=0)
+    wh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates], axis=0)
+    b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates], axis=0) / 2.0
+    out[f"{prefix}.weight_ih{sfx}"] = _t(wi)
+    out[f"{prefix}.weight_hh{sfx}"] = _t(wh)
+    out[f"{prefix}.bias_ih{sfx}"] = _t(b)
+    out[f"{prefix}.bias_hh{sfx}"] = _t(b.copy())
+
+
+def ge2e_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """masg_tpu `SpeechEmbedder` params -> the port's `SpeechEmbedder`
+    state_dict (the reference GE2E names, masg_tpu's `export_torch_ge2e`,
+    compat/torch_fs2.py:624-657). See `_lstm_layer` for the bias split."""
+    out: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"OptimizedLSTMCell_{i}" in params:
+        _lstm_layer(out, "LSTM_stack", params[f"OptimizedLSTMCell_{i}"], f"_l{i}")
+        i += 1
+    _lin(out, "projection.linear_layer", params["projection"])
+    head = "da_classifier.classifier.layer"
+    for j, name in enumerate(("da_linear_0", "da_linear_1", "da_linear_out")):
+        if name in params:
+            _lin(out, f"{head}.linear_{j}.linear_layer", params[name])
+    return out
+
+
+def lang_discriminator_state_dict_from_jax(params: Mapping[str, Any]
+                                           ) -> Dict[str, torch.Tensor]:
+    """masg_tpu `LangDiscriminator` params -> the port's `LangDiscriminator`."""
+    out: Dict[str, torch.Tensor] = {}
+    _lstm_layer(out, "lstm", params["OptimizedLSTMCell_0"], "_l0")
+    _lin(out, "linear", params["linear"])
     return out
 
 

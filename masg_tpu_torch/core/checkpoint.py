@@ -8,7 +8,12 @@ The reference's semantics (train.py:271-285, utils/model.py:11-34):
 
 One `torch.save` file per step, `<ckpt_dir>/<step>.pth.tar`, with the
 FastSpeech2 weights under "model" as the reference's checkpoints hold them,
-so `infer.synthesis.load_model` reads it. `max_to_keep` keeps the newest N.
+so `infer.synthesis.load_model` reads it. A ganlike run (a `GANLike` train
+model: `TrainState.fs2` and `TrainState.discriminator`) keeps its halves
+apart as the reference's `{"model", "discriminator", "optimizer"}`
+(train_ganlike.py:247-257). Under
+bf16 parameter storage the f32 master copy is saved under "master" and
+restored with the rest. `max_to_keep` keeps the newest N.
 """
 
 from __future__ import annotations
@@ -35,15 +40,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState) -> None:
         payload = {
-            "model": state.model.state_dict(),
+            "model": state.fs2.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "scheduler": state.scheduler.state_dict(),
             "step": step,
             "micro_step": state.micro_step,
             # the accumulated gradient of an update still in progress
-            "acc_grads": ([p.grad for p in state.model.parameters()]
+            "acc_grads": ([p.grad for p in state.params()]
                           if state.micro_step else None),
+            "master": state.master,
         }
+        if state.discriminator is not None:
+            payload["discriminator"] = state.discriminator.state_dict()
         tmp = self.path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.path(step))  # a reader sees a whole file or none
@@ -61,20 +69,32 @@ class CheckpointManager:
     def restore(self, step: int, state: TrainState) -> TrainState:
         """Full restore: model + optimizer + schedule (reference --restore_step)."""
         payload = self._load(step)
-        state.model.load_state_dict(payload["model"], strict=True)
+        state.fs2.load_state_dict(payload["model"], strict=True)
+        if state.discriminator is not None:
+            state.discriminator.load_state_dict(payload["discriminator"], strict=True)
+        if (payload.get("master") is None) != (state.master is None):
+            raise ValueError(f"checkpoint {self.path(step)} and this run differ in "
+                             f"param_storage (f32 master copy saved: "
+                             f"{payload.get('master') is not None})")
+        if state.master is not None:
+            with torch.no_grad():
+                for m, saved in zip(state.master, payload["master"]):
+                    m.copy_(saved)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.scheduler.load_state_dict(payload["scheduler"])
         state.step = step
         state.micro_step = payload["micro_step"]
         if payload["acc_grads"] is not None:
-            for p, g in zip(state.model.parameters(), payload["acc_grads"]):
+            for p, g in zip(state.params(), payload["acc_grads"]):
                 p.grad = g.to(p.device, p.dtype)
         return state
 
     def restore_model_only(self, step: int, state: TrainState) -> TrainState:
-        """Warm start from another run's weights (reference --checkpoint)."""
+        """Warm start of the FastSpeech2 weights from another run's (reference
+        --checkpoint); under bf16 storage the master copy follows them."""
         weights = self.model_state_dict(step)
-        state.model.load_state_dict(weights, strict=True)
+        state.fs2.load_state_dict(weights, strict=True)
+        state.sync_master()
         return state
 
     def model_state_dict(self, step: int) -> dict:

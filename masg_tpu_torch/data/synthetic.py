@@ -68,11 +68,12 @@ def write_config_dir(cfg_dir: str, pre_dir: str, out_dir: str,
                      model: Optional[Dict[str, Any]] = None,
                      optimizer: Optional[Dict[str, Any]] = None,
                      step: Optional[Dict[str, Any]] = None, group_size: int = 1,
-                     dataset: str = "SYNTH") -> str:
+                     dataset: str = "SYNTH", train: Optional[Dict[str, Any]] = None) -> str:
     """A reference-style config dir for the corpus in `pre_dir`, writing
     checkpoints and logs under `out_dir`. `model` is model.yaml (empty: the
     flagship `ModelConfig()` defaults); `optimizer` and `step` update
-    train.yaml's sections."""
+    train.yaml's sections, `train` its top level (e.g. `discriminator_path`,
+    `lambda`)."""
     import yaml
 
     os.makedirs(cfg_dir, exist_ok=True)
@@ -97,6 +98,7 @@ def write_config_dir(cfg_dir: str, pre_dir: str, out_dir: str,
                  "val_step": 1000, "save_step": 1000, **(step or {})},
         "dataparallel": False,
         "group_size": group_size,
+        **(train or {}),
     }
     corpus = {"dataset": dataset, "path": {"raw_path": "", "preprocessed_path": pre_dir},
               "text": {"text_cleaners": [], "language": "ja"}, "accent": {"use_accent": False}}

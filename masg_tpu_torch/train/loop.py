@@ -11,6 +11,11 @@ batches of its epoch, and each step seeds torch's generators from
 dropout masks as the run it continues. SIGTERM/SIGINT finish the step in
 flight, save, and return.
 
+`build_experiment` composes the three FastSpeech2 trainers of masg_tpu
+(train/loop.py:575-652): plain, `--use_clf` (a frozen GE2E discriminator,
+`load_ge2e_checkpoint`) and ganlike (FastSpeech2 and the discriminator under
+one optimizer, `models/ganlike.py`), each with `param_storage`.
+
 masg_tpu's `_pack_batch`/`_unpack_fn` (one host->device transfer per batch,
 a workaround for a remoted TPU) and its device mesh have no counterpart here.
 """
@@ -31,10 +36,13 @@ from ..data.dataset import ConcatDataset, Dataset
 from ..data.loader import GroupedLoader
 from ..device import DeviceLike, resolve_device
 from ..models.fastspeech2 import FastSpeech2
+from ..models.ganlike import GANLike
+from ..models.speaker_encoder import SpeechEmbedder
 from ..utils.logging import Logger, log_losses
 from .optim import noam_schedule
 from .state import TrainState, create_train_state
-from .step import batch_to_device, make_eval_step, make_train_step, unported
+from .step import (batch_to_device, make_eval_step, make_ganlike_train_step, make_train_step,
+                   unported)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -44,12 +52,15 @@ def step_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    def __init__(self, cfg: ExperimentConfig, model: FastSpeech2, state: TrainState,
+    def __init__(self, cfg: ExperimentConfig, state: TrainState,
                  train_loader: GroupedLoader, val_dataset: Optional[Dataset] = None,
-                 seed: int = 0, autocast_dtype: Optional[torch.dtype] = None):
+                 seed: int = 0, autocast_dtype: Optional[torch.dtype] = None,
+                 use_clf: bool = False, discriminator: Optional[SpeechEmbedder] = None,
+                 clf_featurization: str = "model"):
         self.cfg = cfg
-        self.model = model
+        self.model = model = state.fs2  # the FastSpeech2 (ganlike: state.model's half)
         self.state = state
+        self.discriminator = discriminator  # kept for introspection, as in masg_tpu
         self.train_loader = train_loader
         self.val_dataset = val_dataset
         self.seed = seed
@@ -67,8 +78,14 @@ class Trainer:
                       energy_feature_level=cfg.preprocess.energy.feature,
                       use_speaker_prior=cfg.model.multi_speaker,
                       autocast_dtype=autocast_dtype)
-        self.train_step_fn = make_train_step(model, use_jdit=cfg.model.jdit.use_jdit,
-                                             **levels)
+        adversarial = dict(lambd=t.lambda_, total_step=self.total_step)
+        if state.discriminator is not None:  # ganlike
+            self.train_step_fn = make_ganlike_train_step(state.model, **adversarial, **levels)
+        else:
+            self.train_step_fn = make_train_step(
+                model, use_clf=use_clf, use_jdit=cfg.model.jdit.use_jdit,
+                discriminator=discriminator, clf_featurization=clf_featurization,
+                **adversarial, **levels)
         self.eval_step_fn = make_eval_step(model, **levels)
 
         self.ckpt = CheckpointManager(t.path.ckpt_path, max_to_keep=t.step.keep_last)
@@ -283,20 +300,67 @@ def build_corpus_dict(cfg: ExperimentConfig, name: str) -> dict:
     }
 
 
+def load_ge2e_checkpoint(path: str, n_mels: int = 80) -> SpeechEmbedder:
+    """A GE2E speaker encoder from the reference's torch checkpoint
+    (`{"embedder_net": state_dict, ...}`, train_speech_embedder.py:218-222,
+    or a bare state_dict), as `train/ge2e.py` writes it and masg_tpu's
+    `load_ge2e_checkpoint` (train/loop.py:655-675) reads it. Its widths
+    (hidden, projection, LSTM layers) come from the checkpoint, as masg_tpu
+    takes them (:612-618). Returns the embedder in f32 on the CPU.
+
+    masg_tpu's orbax directories are not read here: the port reads the torch
+    format (write one with masg_tpu's `compat/torch_fs2.export_torch_ge2e`)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (masg_tpu's orbax GE2E checkpoint); masg_tpu_torch "
+            f"reads the reference's torch format, a file holding {{'embedder_net': "
+            f"state_dict}} (train/ge2e.py writes it)")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"GE2E checkpoint does not exist: {path}")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("embedder_net", ckpt)
+    n_layers = sum(1 for k in sd if k.startswith("LSTM_stack.weight_ih_l"))
+    hidden = int(sd["LSTM_stack.weight_hh_l0"].shape[1])
+    proj = int(sd["projection.linear_layer.weight"].shape[0])
+    use_da = any(k.startswith("da_classifier.") for k in sd)
+    embedder = SpeechEmbedder(n_mels=n_mels, hidden=hidden, n_layers=n_layers, proj=proj,
+                              use_da=use_da)
+    embedder.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+    return embedder
+
+
+def _discriminator(cfg: ExperimentConfig, seed: int) -> SpeechEmbedder:
+    """The GE2E language discriminator: from `discriminator_path` when the
+    config names one (it must exist, reference train.py:74-91), else a
+    random init seeded from seed + 1, with model.yaml's discriminator.hidden
+    (masg_tpu train/loop.py:597-624)."""
+    n_mels = cfg.preprocess.mel.n_mel_channels
+    dpath = cfg.train.discriminator_path
+    if dpath:
+        if not os.path.exists(dpath):
+            raise FileNotFoundError(f"train.yaml discriminator_path does not exist: {dpath}")
+        return load_ge2e_checkpoint(dpath, n_mels)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed + 1)
+        return SpeechEmbedder(n_mels=n_mels, hidden=cfg.model.discriminator.hidden)
+
+
 def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
                      use_clf: bool = False, ganlike: bool = False, restore_step: int = 0,
                      checkpoint: Optional[str] = None, seed: int = 0,
                      device: DeviceLike = None, use_flash: bool = True,
-                     bf16: bool = False, val_split: str = "val.txt") -> Trainer:
+                     bf16: bool = False, val_split: str = "val.txt",
+                     param_storage: str = "f32", clf_featurization: str = "model") -> Trainer:
     """Datasets + model + optimizer + Trainer from a config dir (the CLI
     composition root; reference train.py:30-105), on `device` (the card when
     None). `bf16` runs forward and loss under bf16 autocast with f32
-    parameters, masg_tpu's `--bf16`. `checkpoint`, another run's checkpoint
-    dir, warm-starts the model only from its latest step."""
-    if use_clf:
-        raise unported("--use_clf (the adversarial language discriminator)", 8)
-    if ganlike:
-        raise unported("ganlike training", 8)
+    parameters, masg_tpu's `--bf16`. `param_storage` "bf16" / "bf16_moments"
+    stores FastSpeech2's parameters in bf16 (so it computes in bf16) with an
+    f32 master copy in the optimizer (and bf16 Adam moments). `use_clf`
+    trains against a frozen GE2E discriminator, `ganlike` jointly with it
+    (`clf_featurization`: see `make_train_step`). `checkpoint`, another run's
+    checkpoint dir, warm-starts the FastSpeech2 weights only from its latest
+    step."""
     if cfg.model.jdit.use_jdit:
         raise unported("use_jdit (the JDIT teacher)", 11)
     corpora = corpora or list(cfg.corpora)
@@ -328,9 +392,15 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
         torch.manual_seed(seed)
         model = FastSpeech2.from_config(cfg, use_flash=use_flash)
     model.to(dev)
-    state = create_train_state(model, cfg.train.optimizer, cfg.model.transformer.encoder_hidden)
-    trainer = Trainer(cfg, model, state, loader, val_dataset=val_ds, seed=seed,
-                      autocast_dtype=torch.bfloat16 if bf16 else None)
+    if param_storage != "f32":
+        model.to(torch.bfloat16)  # PostNet's BatchNorm statistics stay f32
+    discriminator = _discriminator(cfg, seed).to(dev) if (use_clf or ganlike) else None
+    trained = GANLike(model, discriminator) if ganlike else model
+    state = create_train_state(trained, cfg.train.optimizer,
+                               cfg.model.transformer.encoder_hidden, param_storage)
+    trainer = Trainer(cfg, state, loader, val_dataset=val_ds, seed=seed,
+                      autocast_dtype=torch.bfloat16 if bf16 else None, use_clf=use_clf,
+                      discriminator=discriminator, clf_featurization=clf_featurization)
 
     if checkpoint is not None:
         other = CheckpointManager(checkpoint)

@@ -1,14 +1,24 @@
 """Train and eval steps (port of masg_tpu/train/step.py).
 
-The reference runs separate backward passes for the FastSpeech2 loss and the
-negated speaker-prior log-likelihood (train.py:151-197); as in masg_tpu they
-are ONE scalar here, total - eloss, with `detach` where masg_tpu has
-`stop_gradient`. Each step: forward (train mode: dropout, batch-statistics
-BatchNorm), loss, one backward, then, every `grad_acc_step` micro-batches,
-clip the mean gradient and take one Adam update with the Noam schedule.
+The reference runs separate backward passes for the FastSpeech2 loss, the
+negated speaker-prior log-likelihood and the scheduled adversarial language
+loss (train.py:151-197); as in masg_tpu they are ONE scalar here, with
+`detach` where masg_tpu has `stop_gradient`. Each step: forward (train mode:
+dropout, batch-statistics BatchNorm), loss, one backward, then, every
+`grad_acc_step` micro-batches, clip the mean gradient and take one Adam
+update with the Noam schedule (on the f32 master under bf16 storage).
 
-The `--use_clf` and ganlike variants (ROADMAP.md queue 1 item 8) and JDIT
-(item 11) are not ported yet.
+Three variants:
+- plain (`make_train_step`): total = FS2 losses - speaker prior;
+- `--use_clf` (`make_train_step(use_clf=True, discriminator=...)`): a second
+  train-mode forward on a speaker-shuffled copy of the batch, its pre-PostNet
+  mel chunked into 150-frame windows and scored by a FROZEN GE2E
+  discriminator; its BCE against the shuffled speakers' language joins the
+  total under a sigmoid warm-up schedule;
+- ganlike (`make_ganlike_train_step`): the same, with the discriminator
+  trained jointly under the one optimizer against jittered labels.
+
+JDIT (ROADMAP.md queue 1 item 11) is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,10 +30,15 @@ import numpy as np
 import torch
 
 from ..models.fastspeech2 import FastSpeech2, FS2Output
+from ..models.ganlike import GANLike
 from ..models.loss import FS2Losses, fastspeech2_loss, speaker_prior_log_prob
+from ..models.speaker_encoder import (SpeechEmbedder, bce_with_logits_sum, chunk_mels,
+                                      discriminator_mode)
 from .state import TrainState
 
-_INT_KEYS = ("speakers", "texts", "src_lens", "mel_lens", "durations", "accents")
+# the speaker_meta column of the binary language label (reference train.py:185)
+LANG_META_INDEX = 2
+_INT_KEYS = ("speakers", "texts", "src_lens", "mel_lens", "durations", "accents", "reorder")
 _HOST_KEYS = ("ids", "raw_texts")
 
 
@@ -35,7 +50,7 @@ class StepMetrics(NamedTuple):
     energy: torch.Tensor
     duration: torch.Tensor
     speaker_prior: torch.Tensor  # eloss (mean GMM log-prob, pre-negation)
-    dloss: torch.Tensor  # adversarial language loss: 0 until --use_clf is ported
+    dloss: torch.Tensor  # adversarial language loss (0 on the plain step)
     grad_norm: torch.Tensor  # global norm of this micro-batch's gradient, pre-clip
 
 
@@ -46,8 +61,9 @@ def unported(variant: str, item: int) -> NotImplementedError:
 
 def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dtype
                     ) -> Dict[str, torch.Tensor]:
-    """Host batch -> tensors on `device`: id and length fields as int64,
-    features in `float_dtype` (the model's parameter dtype)."""
+    """Host batch -> tensors on `device`: id and length fields (and an
+    injected `reorder`) as int64, features in `float_dtype` (the model's
+    parameter dtype)."""
     out = {}
     for k, v in batch.items():
         if k in _HOST_KEYS:
@@ -57,14 +73,16 @@ def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dty
     return out
 
 
-def _forward(model: FastSpeech2, batch: Dict[str, torch.Tensor], train: bool) -> FS2Output:
-    """Teacher-forced forward on a device batch."""
+def _forward(model: FastSpeech2, batch: Dict[str, torch.Tensor], train: bool,
+             speakers: Optional[torch.Tensor] = None,
+             speaker_meta: Optional[torch.Tensor] = None) -> FS2Output:
+    """Teacher-forced forward on a device batch (optionally for other speakers)."""
     model.train(train)
-    return model(batch["speakers"], batch["texts"], batch["src_lens"],
-                 batch["mels"].shape[1], mel_lens=batch["mel_lens"],
+    return model(batch["speakers"] if speakers is None else speakers, batch["texts"],
+                 batch["src_lens"], batch["mels"].shape[1], mel_lens=batch["mel_lens"],
                  p_targets=batch["pitches"], e_targets=batch["energies"],
                  d_targets=batch["durations"], accents=batch.get("accents"),
-                 speaker_meta=batch["speaker_meta"])
+                 speaker_meta=batch["speaker_meta"] if speaker_meta is None else speaker_meta)
 
 
 def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
@@ -90,71 +108,214 @@ def global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
 
+def adversarial_schedule(step: int, total_step: int) -> float:
+    """The sigmoid warm-up of the language loss, 2 / (1 + exp(-10 p)) - 1 at
+    p = (step + 1) / total_step (reference train.py:195-196, whose step
+    counter starts at 1 while `state.step` counts from 0). In f32 whatever
+    the model's dtype, as masg_tpu computes it from `state.step.astype(f32)`:
+    an f64 trajectory moves by the f32 rounding of this factor."""
+    s = torch.tensor(float(step), dtype=torch.float32)
+    return float(2.0 / (1.0 + torch.exp(-10.0 * ((s + 1.0) / total_step))) - 1.0)
+
+
+def ge2e_basis(n_mels: int = 80) -> np.ndarray:
+    """(n_mels, n_mels) change of basis A = FB55ᵀ·pinv(FB0ᵀ), rounded to f32:
+    a linear mel on the model's fmin-0 filterbank -> the GE2E encoder's
+    fmin-55 one (masg_tpu's `clf_featurization="ge2e"`, step.py:109-117)."""
+    from ..audio.stft import mel_filterbank
+
+    fb0 = mel_filterbank(n_mels, 1024, 22050, 0.0, 8000.0)  # (n_freqs, n_mels)
+    fb55 = mel_filterbank(n_mels, 1024, 22050, 55.0, 8000.0)
+    return (fb55.T @ np.linalg.pinv(fb0.T)).astype(np.float32)
+
+
+def _language_loss(model: FastSpeech2, discriminator: SpeechEmbedder,
+                   batch: Dict[str, torch.Tensor], basis: Optional[torch.Tensor], jitter: bool
+                   ) -> Tuple[torch.Tensor, int]:
+    """(BCE sum, number of chunks) of the discriminator on a second train-mode
+    forward for a speaker-shuffled batch (reference train.py:170-196,
+    train_ganlike.py:140-170). PostNet's BatchNorm statistics update again,
+    after the first forward's, as masg_tpu threads them. `reorder` and
+    `lang_jitter` come from the batch when given (parity tests inject the
+    reference's draws), else from torch's generator. The discriminator runs
+    in f32 outside autocast, on its own dtype, with its dropout off and its
+    LSTM in train mode (`discriminator_mode`)."""
+    bsz = batch["speakers"].shape[0]
+    reorder = batch.get("reorder")
+    if reorder is None:
+        reorder = torch.randperm(bsz, device=batch["speakers"].device)
+    meta = batch["speaker_meta"][reorder]
+    out_x = _forward(model, batch, True, speakers=batch["speakers"][reorder],
+                     speaker_meta=meta)
+    mel = out_x.mel
+    if basis is not None:
+        # feature log-mel -> linear mel -> GE2E (fmin 55) mel basis -> log,
+        # differentiable so the adversarial gradient reaches the model
+        mel = torch.log(torch.clamp(torch.exp(mel) @ basis.to(mel.dtype).T, min=1e-5))
+    chunks = chunk_mels(mel, 150)  # (B * n_chunks, 150, n_mels)
+    n_chunks = chunks.shape[0] // bsz
+    w = discriminator.projection.linear_layer.weight
+    langs = meta[:, LANG_META_INDEX].repeat_interleave(n_chunks).to(w.dtype)
+    if jitter:  # label jitter langs + U[0, 1) (train_ganlike.py:163)
+        j = batch.get("lang_jitter")
+        langs = langs + (torch.rand(langs.shape, device=langs.device, dtype=langs.dtype)
+                         if j is None else j.to(langs.dtype))
+    with torch.autocast(chunks.device.type, enabled=False):
+        logits = discriminator_mode(discriminator)(chunks.to(w.dtype))["da_lang_logits"]
+        return bce_with_logits_sum(logits, langs), chunks.shape[0]
+
+
+def _update(state: TrainState, total: torch.Tensor) -> torch.Tensor:
+    """Backward of `total`, then (every `grad_acc_step` micro-batches) the
+    clip and one optimizer + schedule step. Returns the micro-batch's global
+    gradient norm before the clip."""
+    params = state.params()
+    k = state.grad_acc_step
+    # the mean gradient of the micro-batches so far: this one's goes apart
+    acc = [p.grad for p in params] if state.micro_step else None
+    for p in params:
+        p.grad = None
+    total.backward()
+    for p in params:  # one the forward did not reach (no accents) counts as zero
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    # the clip's norm is this gradient's when it covers every parameter of a
+    # single micro-batch (over the master it is the f32 norm of the same values)
+    grad_norm = (None if state.discriminator is None and k == 1
+                 else global_norm([p.grad for p in params]))
+    if k > 1:  # optax.MultiSteps: the mean of k micro-batch gradients, one update
+        for i, p in enumerate(params):
+            g = p.grad / k
+            p.grad = g if acc is None else acc[i] + g
+        state.micro_step += 1
+        if state.micro_step < k:
+            state.step += 1
+            return grad_norm
+    # the optimizer's tensors: the f32 master under bf16 storage
+    opt = params if state.master is None else state.master
+    if state.master is not None:
+        for m, p in zip(state.master, params):
+            m.grad = p.grad.to(m.dtype)
+    clip = [t for t, c in zip(opt, state.clip_mask()) if c]
+    norm = torch.nn.utils.clip_grad_norm_(clip, state.grad_clip_thresh)
+    grad_norm = norm if grad_norm is None else grad_norm
+    state.optimizer.step()
+    state.scheduler.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    if state.master is not None:
+        with torch.no_grad():
+            for m, p in zip(state.master, params):
+                p.copy_(m)  # the stored parameters become bf16(master)
+                p.grad = None
+    state.micro_step = 0
+    state.step += 1
+    return grad_norm
+
+
+def _metrics(losses: FS2Losses, eloss, dloss, grad_norm) -> StepMetrics:
+    return StepMetrics(*(x.detach() for x in losses), speaker_prior=eloss.detach(),
+                       dloss=dloss.detach(), grad_norm=grad_norm.detach())
+
+
 def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_level",
                     energy_feature_level: str = "phoneme_level",
                     use_speaker_prior: bool = True, use_clf: bool = False,
-                    use_jdit: bool = False, autocast_dtype: Optional[torch.dtype] = None
+                    use_jdit: bool = False,
+                    discriminator: Optional[SpeechEmbedder] = None,
+                    lambd: float = 1.0, total_step: int = 30000,
+                    clf_featurization: str = "model",
+                    autocast_dtype: Optional[torch.dtype] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor], Optional[int]],
                                   Tuple[TrainState, StepMetrics]]:
     """The train step closure: `train_step(state, batch, seed)`.
 
     `seed`, when given, seeds torch's generators first, so a step's dropout
-    masks are a function of the seed alone (the trainer passes one derived
-    from (run seed, step)). `autocast_dtype` (bf16) runs forward and loss
-    under `torch.autocast`.
+    masks (and `--use_clf`'s speaker shuffle) are a function of the seed
+    alone (the trainer passes one derived from (run seed, step)).
+    `autocast_dtype` (bf16) runs the FastSpeech2 forwards and loss under
+    `torch.autocast`.
+
+    `use_clf` needs `discriminator`, a GE2E `SpeechEmbedder` that stays frozen
+    (no gradient to its parameters, outside the optimizer and the clip); the
+    language loss joins the total as dloss * schedule(step) * lambd / number
+    of chunks (masg_tpu step.py:143-177), against the speaker_meta column
+    `LANG_META_INDEX`.
+    `clf_featurization`: "model" feeds the predicted feature mels as they are
+    (the reference's); "ge2e" first maps them into the GE2E encoder's fmin-55
+    mel basis (`ge2e_basis`; masg_tpu's opt-in, beyond parity).
     """
-    if use_clf:
-        raise unported("--use_clf (the adversarial language discriminator)", 8)
     if use_jdit:
         raise unported("use_jdit (the JDIT teacher)", 11)
+    assert clf_featurization in ("model", "ge2e"), clf_featurization
+    if use_clf:
+        assert discriminator is not None, "use_clf needs a discriminator"
+        discriminator.requires_grad_(False)
     device = next(model.parameters()).device
+    basis = (torch.from_numpy(ge2e_basis()).to(device)
+             if use_clf and clf_featurization == "ge2e" else None)
 
-    def loss_fn(model: FastSpeech2, batch: Dict[str, torch.Tensor]):
-        """(total, losses, eloss, output) of one train-mode forward."""
+    def loss_fn(model: FastSpeech2, batch: Dict[str, torch.Tensor], step: int = 0):
+        """(objective, losses, eloss, dloss, output) of the train-mode forward(s)."""
         with _autocast(device, autocast_dtype):
-            return _losses(model, batch, True, pitch_feature_level, energy_feature_level,
-                           use_speaker_prior)
+            total, losses, eloss, out = _losses(model, batch, True, pitch_feature_level,
+                                                energy_feature_level, use_speaker_prior)
+            dloss = torch.zeros((), dtype=total.dtype, device=total.device)
+            if use_clf:
+                dloss, n = _language_loss(model, discriminator, batch, basis,
+                                          jitter=False)
+                total = total + dloss * (adversarial_schedule(step, total_step) * lambd / n)
+        return total, losses, eloss, dloss, out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: Optional[int] = None) -> Tuple[TrainState, StepMetrics]:
         if seed is not None:
             torch.manual_seed(seed)
-        params = [p for p in state.model.parameters() if p.requires_grad]
-        k = state.grad_acc_step
-        # the mean gradient of the micro-batches so far: this one's goes apart
-        acc = [p.grad for p in params] if state.micro_step else None
-        for p in params:
-            p.grad = None
-        total, losses, eloss, _ = loss_fn(state.model, batch)
-        total.backward()
-        for p in params:  # one the forward did not reach (no accents) counts as zero
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-
-        if k == 1:
-            grad_norm = torch.nn.utils.clip_grad_norm_(params, state.grad_clip_thresh)
-            update = True
-        else:  # optax.MultiSteps: the mean of k micro-batch gradients, one update
-            grad_norm = global_norm([p.grad for p in params])
-            for i, p in enumerate(params):
-                g = p.grad / k
-                p.grad = g if acc is None else acc[i] + g
-            state.micro_step += 1
-            update = state.micro_step == k
-            if update:
-                torch.nn.utils.clip_grad_norm_(params, state.grad_clip_thresh)
-        if update:
-            state.optimizer.step()
-            state.scheduler.step()
-            state.optimizer.zero_grad(set_to_none=True)
-            state.micro_step = 0
-        state.step += 1
-        zero = torch.zeros((), dtype=losses.total.dtype, device=losses.total.device)
-        metrics = StepMetrics(*(x.detach() for x in losses), speaker_prior=eloss.detach(),
-                              dloss=zero, grad_norm=grad_norm.detach())
-        return state, metrics
+        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step)
+        grad_norm = _update(state, total)
+        return state, _metrics(losses, eloss, dloss, grad_norm)
 
     train_step.loss_fn = loss_fn  # exposed for parity tooling, as in masg_tpu
+    return train_step
+
+
+def make_ganlike_train_step(model: GANLike, pitch_feature_level: str = "phoneme_level",
+                            energy_feature_level: str = "phoneme_level",
+                            use_speaker_prior: bool = True, lambd: float = 1.0,
+                            total_step: int = 30000,
+                            autocast_dtype: Optional[torch.dtype] = None):
+    """The adversarial variant (masg_tpu step.py:208-282; reference
+    train_ganlike.py:140-170, model/ganlike.py:10-45): FastSpeech2 and the
+    discriminator (`model.model`, `model.discriminator`) train jointly under
+    the state's one optimizer, against jittered labels langs + U[0, 1); the
+    clip covers the FastSpeech2 half only (`TrainState.clip_mask`).
+    Under gradient accumulation the dloss term is multiplied by the state's
+    `grad_acc_step` k (`loss_fn`'s `grad_acc_step`): the reference scales
+    total and eloss by 1/k but not dloss (train_ganlike.py:155,160,167), an
+    asymmetry masg_tpu keeps."""
+    device = next(model.parameters()).device
+
+    def loss_fn(model: GANLike, batch: Dict[str, torch.Tensor], step: int = 0,
+                grad_acc_step: int = 1):
+        """(objective, losses, eloss, dloss, output) of the train-mode forwards."""
+        with _autocast(device, autocast_dtype):
+            total, losses, eloss, out = _losses(model.model, batch, True, pitch_feature_level,
+                                                energy_feature_level, use_speaker_prior)
+            dloss, n = _language_loss(model.model, model.discriminator, batch, None,
+                                      jitter=True)
+            total = total + dloss * (adversarial_schedule(step, total_step) * lambd
+                                     * grad_acc_step / n)
+        return total, losses, eloss, dloss, out
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   seed: Optional[int] = None) -> Tuple[TrainState, StepMetrics]:
+        if seed is not None:
+            torch.manual_seed(seed)
+        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step,
+                                                 state.grad_acc_step)
+        grad_norm = _update(state, total)
+        return state, _metrics(losses, eloss, dloss, grad_norm)
+
+    train_step.loss_fn = loss_fn
     return train_step
 
 
@@ -165,13 +326,14 @@ def make_eval_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_level
                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                  Tuple[FS2Losses, torch.Tensor, FS2Output]]:
     """Validation step: losses on a batch with dropout off and BatchNorm on
-    its running statistics, no update (reference evaluate.py:18-75)."""
+    its running statistics, no update (reference evaluate.py:18-75), on the
+    state's FastSpeech2 (`TrainState.fs2`: ganlike's FastSpeech2 half)."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         with _autocast(device, autocast_dtype):
-            _, losses, eloss, out = _losses(state.model, batch, False, pitch_feature_level,
+            _, losses, eloss, out = _losses(state.fs2, batch, False, pitch_feature_level,
                                             energy_feature_level, use_speaker_prior)
         return losses, eloss, out
 

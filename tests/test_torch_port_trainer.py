@@ -1,7 +1,7 @@
 """The port's trainer entry points on the CPU: its Dataset / GroupedLoader
 copies against masg_tpu's, `cli.train --device cpu` with save, deterministic
 resume (dropout on) and `cli.evaluate`, checkpoint rotation, and the
-variants that are not ported yet."""
+variants: `--use_clf` and ganlike build, JDIT is not ported yet."""
 
 import json
 import os
@@ -133,14 +133,22 @@ def test_checkpoint_keep_last_rotates(corpus):
 
 
 def test_unported_variants_raise(corpus):
+    """`--use_clf` and ganlike are ported (queue 1 item 8) and now build;
+    JDIT (item 11) still raises."""
     cfg_dir = _config(corpus, "unported")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        train_main(["-c", cfg_dir, "--device", "cpu", "--use_clf"])
+    from masg_tpu_torch.models.ganlike import GANLike
     from masg_tpu_torch.train.loop import build_experiment
 
     cfg = load_config_dir(cfg_dir)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        build_experiment(cfg, ganlike=True, device="cpu")
+    clf = build_experiment(cfg, use_clf=True, device="cpu")
+    assert clf.discriminator is not None and clf.state.model is clf.model
+    assert all(not p.requires_grad for p in clf.discriminator.parameters())
+    gan = build_experiment(cfg, ganlike=True, device="cpu")
+    assert isinstance(gan.state.model, GANLike) and gan.state.fs2 is gan.model
+    assert gan.state.discriminator is gan.state.model.discriminator
+    # the clip covers the FastSpeech2 half only (masg_tpu's clip_subtree="model")
+    assert gan.state.clip_mask() == [n.startswith("model.") for n, p in
+                                     gan.state.model.named_parameters() if p.requires_grad]
     cfg.model.jdit.use_jdit = True
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
         build_experiment(cfg, device="cpu")
