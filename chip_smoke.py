@@ -69,7 +69,16 @@ Phases (any failure exits non-zero; nothing is caught):
    parameters, master and moments, finite losses, steps/s;
 10. the trainer: `cli.train` on a random 32-utterance corpus at the flagship
    width, 4 steps, a run resumed at step 2 that must repeat steps 3 and 4,
-   and `cli.evaluate` on the saved step;
+   and `cli.evaluate` on the saved step; then [dump_mels]: `cli.dump_mels`
+   on its step 4 (train.txt and val.txt, batches of 16): exactly 10 K1
+   launches per batch and none of K2-K4, every mel within 2e-4 of the same
+   dump on the plain path with identical lengths, K1's device time per
+   batch; and [vocoder_finetune]: `cli.train_vocoder --mel_dir` on those
+   mels and a sine-plus-noise wav per utterance, universal V1, segment
+   8192, batch 16, 4 steps from a seeded V1 generator, a run restored at
+   step 2 that must repeat steps 3-4 within 1e-5 relative, and the exported
+   `generator_4.pth.tar` through `get_vocoder` with K4 (2 launches) against
+   the plain MRF within 2 LSB;
 11. [ge2e]: the GE2E trainer at masg_tpu's default width (SpeechEmbedder
    80 -> 3 x 256 -> 64, N = 32 speakers x M = 10 chunks x 150 frames) on
    chunk archives that `build_ge2e_corpus` writes from 32 synthetic
@@ -86,13 +95,27 @@ Phases (any failure exits non-zero; nothing is caught):
    time per `--use_clf` step; then `cli.train_speech_embedder` (2 epochs),
    `cli.train --use_clf` with its checkpoint and `cli.train_ganlike` (2
    steps each, 40 launches each of K1-K3) on the card;
-13. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+13. [vocoder_train]: the HiFi-GAN GAN step (`train.vocoder`) at the
+   universal V1 width, B = 16 x 8192 samples, f32: 2 warm-ups and 10 timed
+   steps (ms per step, steps/s), finite losses, no K4 launch, peak memory,
+   a profiler window of 2 steps (idle share, heaviest device ops); 3 steps
+   at masg_tpu's tests' tiny width on the card and on the CPU; K4 on a
+   tensor that requires grad raises;
+14. [preprocess]: `cli.preprocess` on a `make_synthetic_corpus` raw corpus
+   (2 speakers x 4 utterances) on the card and with `--device cpu`; then its
+   speed on 4 speakers x 48 utterances of ~4 s, each device's ms per
+   utterance split into reads, host F0, features, writes and normalization,
+   and the card's features at new against repeated frame counts;
+15. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
    step; `serve`: K1's and K4's launches under the 32 served requests and
    their device time per B=1 request at bucket 128; `adversarial`: K1's,
-   K2's and K3's launches and device time per float32 `--use_clf` step);
-14. the `{"ok": true, ...}` line, last.
+   K2's and K3's launches and device time per float32 `--use_clf` step;
+   `dump_mels` on K1: launches, batches and device time per batch;
+   `trained_generator` on K4: launches per forward of the exported
+   generator);
+16. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -131,7 +154,17 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
   gradients that are 0 in exact arithmetic hold to round-off).
 - GE2E float32, card vs CPU: (ge2e, da) losses of 3 steps within 1e-4
   relative (cuDNN's LSTM and the CPU's sum in other orders, and 3 Adam
-  updates carry the difference on).
+  updates carry the difference on); the vocoder GAN step at the tiny width
+  the same bar on its 5 losses.
+- dump_mels float32: kernel vs plain mels within 2e-4 (the main path's bar).
+- vocoder fine-tuning: resumed losses within 1e-5 relative (cuDNN's
+  backward algorithms are not bitwise deterministic); the exported
+  generator, K4 vs the plain MRF, within 2 LSB.
+- preprocess, card vs CPU: splits, files, duration and pitch identical;
+  the mel (linear, exp of the stored log-mel) and energy within 1e-5 of
+  each file's peak, the log-mel within 1e-3 (at near-silent bins, log-mel
+  ~ -11.4, an f32 FFT is ~2e-4 of the peak off an f64 one, whichever FFT),
+  stats.json within 1e-5 relative.
 """
 
 import json
@@ -1134,46 +1167,40 @@ def _total_losses(cfg_dir):
     return [(r["step"], r["value"]) for r in rows if r["tag"] == "Loss/total_loss"]
 
 
-def trainer_path():
-    """Phase: `cli.train` on a random 32-utterance corpus at the flagship
-    width, 4 steps, then a run resumed at step 2; then `cli.evaluate`."""
-    import shutil
-    import tempfile
-
+def trainer_path(root):
+    """Phase: `cli.train` on a random 32-utterance corpus under `root` at the
+    flagship width, 4 steps, then a run resumed at step 2; then
+    `cli.evaluate`. Returns the config dir (`[dump_mels]` reads its step 4)."""
     import torch
 
     from masg_tpu_torch.cli.evaluate import main as evaluate_main
     from masg_tpu_torch.cli.train import main as train_main
     from masg_tpu_torch.data.synthetic import write_config_dir, write_preprocessed_corpus
 
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
-    try:
-        pre = write_preprocessed_corpus(os.path.join(root, "pre"), n_utts=32, n_speakers=4,
-                                        n_val=4, phones=(48, 120), frames_per_phone=(1, 5))
-        cfg_dir = write_config_dir(os.path.join(root, "cfg"), pre, os.path.join(root, "out"),
-                                   step={"save_step": 2, "val_step": 4})
-        reset_counts()
-        state = train_main(["-c", cfg_dir, "--max_steps", "4"])
-        torch.cuda.synchronize()
-        counts = read_counts()
-        assert state.step == 4 and counts["K4"] == 0 and min(
-            counts[k] for k in ("K1", "K2", "K3")) > 0, counts
-        first = dict(_total_losses(cfg_dir))
-        train_main(["-c", cfg_dir, "--restore_step", "2", "--max_steps", "2"])
-        second = _total_losses(cfg_dir)[4:]
-        assert [s for s, _ in second] == [3, 4], second
-        errs = [abs(v - first[s]) / abs(first[s]) for s, v in second]
-        print(f"[trainer] cli.train: 4 steps (launches {counts}), resumed at step 2: "
-              f"step 3/4 losses {[round(first[3], 6), round(first[4], 6)]} vs "
-              f"{[round(v, 6) for _, v in second]}, max relative err {max(errs):.3g} "
-              f"(tol 1e-5)")
-        assert max(errs) <= 1e-5, errs
-        means = evaluate_main(["-c", cfg_dir, "--restore_step", "4"])
-        assert len(means) == 6 and all(math.isfinite(x) for x in means), means
-        print(f"[trainer] cli.evaluate on step 4: total loss {means[0]:.4f}")
-    finally:
-        shutil.rmtree(root)
+    pre = write_preprocessed_corpus(os.path.join(root, "pre"), n_utts=32, n_speakers=4,
+                                    n_val=4, phones=(48, 120), frames_per_phone=(1, 5))
+    cfg_dir = write_config_dir(os.path.join(root, "cfg"), pre, os.path.join(root, "out"),
+                               step={"save_step": 2, "val_step": 4})
+    reset_counts()
+    state = train_main(["-c", cfg_dir, "--max_steps", "4"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert state.step == 4 and counts["K4"] == 0 and min(
+        counts[k] for k in ("K1", "K2", "K3")) > 0, counts
+    first = dict(_total_losses(cfg_dir))
+    train_main(["-c", cfg_dir, "--restore_step", "2", "--max_steps", "2"])
+    second = _total_losses(cfg_dir)[4:]
+    assert [s for s, _ in second] == [3, 4], second
+    errs = [abs(v - first[s]) / abs(first[s]) for s, v in second]
+    print(f"[trainer] cli.train: 4 steps (launches {counts}), resumed at step 2: "
+          f"step 3/4 losses {[round(first[3], 6), round(first[4], 6)]} vs "
+          f"{[round(v, 6) for _, v in second]}, max relative err {max(errs):.3g} "
+          f"(tol 1e-5)")
+    assert max(errs) <= 1e-5, errs
+    means = evaluate_main(["-c", cfg_dir, "--restore_step", "4"])
+    assert len(means) == 6 and all(math.isfinite(x) for x in means), means
+    print(f"[trainer] cli.evaluate on step 4: total loss {means[0]:.4f}")
+    return cfg_dir
 
 
 def train_kernel_times(train, smi):
@@ -2118,6 +2145,407 @@ def serve_path(smi):
                                       "K4": {"launches": per_req["K4"], "device_ms": k4_dev}}}
 
 
+# ---------------------------------------------------------------------------
+# vocoder training, mel dumping, fine-tuning and feature extraction
+# ---------------------------------------------------------------------------
+
+# masg_tpu's tests' TINY_CFG (tests/test_vocoder_training.py:41-51): the
+# card-vs-CPU check of the GAN step
+TINY_VOCODER = {"segment_size": 512, "hop_size": 16, "n_fft": 64, "win_size": 64,
+                "num_mels": 8, "sampling_rate": 22050, "fmin": 0, "fmax": 8000,
+                "fmax_for_loss": None, "learning_rate": 2e-4, "adam_b1": 0.8,
+                "adam_b2": 0.99, "lr_decay": 0.999, "upsample_rates": [4, 4],
+                "upsample_kernel_sizes": [8, 8], "upsample_initial_channel": 32,
+                "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 2]],
+                "mpd_periods": [2, 3], "mpd_channels": [4, 8, 16, 16], "msd_scales": 2,
+                "msd_layers": [[8, 15, 1, 1], [16, 41, 4, 4], [16, 5, 1, 1]]}
+
+
+def sine_batch(rng, b, n, noise=0.02):
+    """(b, n) f32 audio: two harmonics of a random F0 in 100-300 Hz plus noise."""
+    import numpy as np
+
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = rng.uniform(100, 300, size=(b, 1))
+    ph = rng.uniform(0, 2 * np.pi, size=(b, 1))
+    wav = 0.5 * np.sin(2 * np.pi * f0 * t + ph) + 0.2 * np.sin(4 * np.pi * f0 * t + ph)
+    return (wav + noise * rng.normal(size=(b, n))).astype(np.float32)
+
+
+def vocoder_train_path(smi):
+    """Phase [vocoder_train]: the HiFi-GAN GAN step (`train.vocoder`) at the
+    universal V1 width (generator 512 channels at rates 8·8·2·2, MPD periods
+    2/3/5/7/11 up to 1024 channels, MSD 3 scales), B = 16, segment 8192, f32,
+    seeded weights and a seeded sine-plus-noise batch: 2 warm-ups and 10
+    timed steps (wall per step, each ending in a synchronize), finite losses,
+    no K4 launch, peak memory, one profiler window (idle share, heaviest
+    device ops); 3 steps at the tests' tiny width on the card and the CPU;
+    K4 on a tensor that requires grad raises."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masg_tpu_torch.cli.train_vocoder import DEFAULT_TRAIN_CONFIG
+    from masg_tpu_torch.infer.vocoder import DEFAULT_HIFIGAN_CONFIG
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
+    from masg_tpu_torch.train.vocoder import init_vocoder_train_state, make_vocoder_train_step
+
+    cfg = {**DEFAULT_HIFIGAN_CONFIG, **DEFAULT_TRAIN_CONFIG}
+    bsz, seg = cfg["batch_size"], cfg["segment_size"]
+    y = torch.from_numpy(sine_batch(np.random.default_rng(0), bsz, seg)).to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_vocoder_train_state(cfg, steps_per_epoch=1000, seed=0, device=DEVICE)
+    n_gen = sum(p.numel() for p in state.generator.parameters())
+    n_disc = sum(p.numel() for p in state.disc_params())
+    step = make_vocoder_train_step(cfg)
+    k4 = fused_mrf_stage.launches
+    for _ in range(2):
+        state, m = step(state, y)
+    torch.cuda.synchronize()
+    walls, losses = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, m = step(state, y)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append([float(x) for x in m])
+    assert fused_mrf_stage.launches == k4, "K4 launched inside the GAN step"
+    assert all(math.isfinite(x) for row in losses for x in row), losses
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(walls)
+    print(f"[vocoder_train] V1 GAN step, B={bsz} x {seg} samples, f32 (TF32 off): generator "
+          f"{n_gen / 1e6:.2f}M + discriminators {n_disc / 1e6:.2f}M parameters; "
+          f"{med * 1e3:.1f} ms per step (median of 10; mean {statistics.mean(walls) * 1e3:.1f}, "
+          f"min {min(walls) * 1e3:.1f}), {1 / med:.3f} steps/s; peak memory {peak:.2f} GiB; "
+          f"losses step 3 {[round(x, 4) for x in losses[0]]}, step 12 "
+          f"{[round(x, 4) for x in losses[-1]]} (disc, gen, adv, fm, mel_l1); K4 launches 0; "
+          f"on {smi}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = step(state, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    assert kern, "the profiler saw no device work in the GAN step"
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in kern])
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    print(f"[vocoder_train] profiler window, 2 steps: wall {wall / 2e3:.1f} ms / step, device "
+          f"busy {busy / 2e3:.1f} ms / step ({100 * (1 - busy / wall):.1f} % idle), "
+          f"{len(kern) // 2} device ops / step; heaviest (ms / step):")
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        print(f"[vocoder_train]   {t / 2e3:8.3f}  {name[:110]}")
+    del state, step, y
+    torch.cuda.empty_cache()
+
+    # the tiny width, 3 steps on the card and on the CPU from the same weights
+    tiny_step = make_vocoder_train_step(TINY_VOCODER)
+    rng = np.random.default_rng(1)
+    batches = [sine_batch(rng, 4, TINY_VOCODER["segment_size"]) for _ in range(3)]
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        st = init_vocoder_train_state(TINY_VOCODER, 2, seed=1, device=dev)
+        got[dev] = []
+        for b in batches:
+            st, m = tiny_step(st, torch.from_numpy(b).to(dev))
+            got[dev].append([float(x) for x in m])
+    err = max(abs(a - b) / abs(b) for ra, rb in zip(got[DEVICE], got["cpu"])
+              for a, b in zip(ra, rb))
+    print(f"[vocoder_train] tiny width (TINY_CFG), 3 steps card vs CPU: max relative err of "
+          f"the 5 losses {err:.3g} (tol 1e-4)")
+    assert err <= 1e-4, (got, err)
+
+    # the repair: K4 refuses a tensor that needs a gradient
+    blocks = random_mrf_params(32, (3,), 1, torch.Generator().manual_seed(4), torch.float32)
+    x = torch.randn(1, 64, 32, device=DEVICE, requires_grad=True)
+    try:
+        fused_mrf_stage(x, blocks, (3,), ((1,),))
+    except RuntimeError as e:
+        assert "inference-only" in str(e), e
+    else:
+        raise AssertionError("fused_mrf_stage ran K4 on a tensor that requires grad")
+    print("[vocoder_train] fused_mrf_stage on a CUDA tensor that requires grad: raises "
+          "(K4 is inference-only)")
+    return {"ms_per_step": med * 1e3, "peak_gib": peak, "idle": 1 - busy / wall}
+
+
+def _split_count(cfg_dir, split):
+    from masg_tpu_torch.core.config import load_config_dir
+
+    cfg = load_config_dir(cfg_dir)
+    with open(os.path.join(next(iter(cfg.corpora.values())).preprocessed_path, split)) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def dump_mels_path(smi, cfg_dir, root):
+    """Phase [dump_mels]: `cli.dump_mels` on the card on `[trainer]`'s step 4
+    and corpus (flagship width, batch 16, train.txt and val.txt): K1 exactly
+    10 launches per batch, K2/K3 none; every mel within 2e-4 of the same
+    dump on the plain path (`--no-use_flash`), identical names and lengths;
+    K1's device time per batch from a profiler window. Returns (the kernels
+    line's field, the mel dir)."""
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.cli.dump_mels import main as dump_main
+
+    n_batches = sum(-(-_split_count(cfg_dir, s) // 16) for s in ("train.txt", "val.txt"))
+    args = ["-c", cfg_dir, "--restore_step", "4"]
+    out_k, out_p = os.path.join(root, "mels"), os.path.join(root, "mels_plain")
+    reset_counts()
+    t0 = time.perf_counter()
+    n = dump_main([*args, "--out", out_k])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {"K1": 10 * n_batches, "K2": 0, "K3": 0, "K4": 0}, (counts, n_batches)
+    dump_main([*args, "--out", out_p, "--no-use_flash"])
+    names = sorted(os.listdir(out_k))
+    assert names == sorted(os.listdir(out_p)) and len(names) > 0
+    err, frames = 0.0, 0
+    for name in names:
+        a, b = np.load(os.path.join(out_k, name)), np.load(os.path.join(out_p, name))
+        assert a.shape == b.shape and np.isfinite(a).all(), name
+        err = max(err, float(np.abs(a - b).max()))
+        frames += a.shape[0]
+    k1_dev = device_ms(lambda: dump_main([*args, "--out", os.path.join(root, "mels_prof")]),
+                       1, "flash_fwd") / n_batches
+    print(f"[dump_mels] cli.dump_mels on the card, step 4 of [trainer]: {n} mels ({len(names)} "
+          f"files, {frames} frames) in {n_batches} batches of <= 16, {wall:.2f} s wall (model "
+          f"build and checkpoint load included); launches {counts} = 10 K1 per batch; kernel vs "
+          f"plain path max|mel err| {err:.3g} (tol 2e-4), lengths identical; K1 device time "
+          f"{k1_dev:.3f} ms per batch; on {smi}")
+    assert err <= 2e-4, err
+    return {"launches": counts["K1"], "batches": n_batches, "launches_per_batch": 10,
+            "device_ms_per_batch": k1_dev}, out_k
+
+
+def vocoder_finetune_path(smi, root, mel_dir):
+    """Phase [vocoder_finetune]: `cli.train_vocoder --mel_dir` on the card on
+    `[dump_mels]`' mels and wavs written for `[trainer]`'s corpus (a sine
+    plus noise per utterance, mel_len x 256 samples), at V1 width, segment
+    8192, batch 16, 4 steps from a seeded V1 generator (warm start), saves at
+    2 and 4; a run restored at step 2 repeats steps 3-4 within 1e-5
+    relative; `generator_4.pth.tar` through `get_vocoder(fused_mrf=True)`
+    (K4, 2 launches) against `fused_mrf=False` on a dumped mel within 2 LSB."""
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.audio.wavio import write_wav
+    from masg_tpu_torch.cli.train_vocoder import main as voc_main
+    from masg_tpu_torch.core.config import ModelConfig
+    from masg_tpu_torch.infer.vocoder import get_vocoder, vocoder_infer
+    from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+
+    rng = np.random.default_rng(3)
+    wav_dir = os.path.join(root, "wavs")
+    names = sorted(os.listdir(mel_dir))
+    for name in names:
+        spk, base = name[:-len(".npy")].split("-mel-")
+        n = np.load(os.path.join(mel_dir, name)).shape[0] * HOP
+        os.makedirs(os.path.join(wav_dir, spk), exist_ok=True)
+        write_wav(os.path.join(wav_dir, spk, base + ".wav"), 0.6 * sine_batch(rng, 1, n)[0],
+                  SAMPLE_RATE)
+    warm = os.path.join(root, "g_seeded.pth.tar")
+    gen = HiFiGANGenerator()
+    init_random_weights(gen, torch.Generator().manual_seed(1))
+    torch.save({"generator": gen.state_dict()}, warm)
+    common = ["--wav_dir", wav_dir, "--mel_dir", mel_dir, "--batch_size", "16", "--steps", "4",
+              "--save_step", "2", "--log_step", "1"]
+    out1, out2 = os.path.join(root, "voc"), os.path.join(root, "voc_resumed")
+    reset_counts()
+    t0 = time.perf_counter()
+    voc_main([*common, "--out", out1, "--warm_start_generator", warm])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert read_counts()["K4"] == 0
+    voc_main([*common, "--out", out2, "--restore", os.path.join(out1, "vocoder_2.pth.tar")])
+    logs = []
+    for out in (out1, out2):
+        with open(os.path.join(out, "log.jsonl")) as f:
+            logs.append([json.loads(line) for line in f])
+    assert [r["step"] for r in logs[0]] == [1, 2, 3, 4], logs[0]
+    assert [r["step"] for r in logs[1]] == [3, 4], logs[1]
+    keys = ("disc_loss", "gen_loss", "mel_l1", "fm")
+    assert all(math.isfinite(r[k]) for r in logs[0] for k in keys)
+    err = max(abs(b[k] - a[k]) / abs(a[k]) for a, b in zip(logs[0][2:], logs[1]) for k in keys)
+    print(f"[vocoder_finetune] cli.train_vocoder --mel_dir, V1, B=16 x 8192, {len(names)} "
+          f"pairs: 4 steps in {wall:.1f} s wall (build and warm start included), step 4 "
+          f"{[round(logs[0][3][k], 4) for k in keys]} (disc, gen, mel_l1, fm); restored at "
+          f"step 2: steps 3-4 max relative err {err:.3g} (tol 1e-5); on {smi}")
+    assert err <= 1e-5, (logs, err)
+
+    ckpt = os.path.join(out1, "generator_4.pth.tar")
+    voc_k = get_vocoder(ModelConfig(), checkpoint=ckpt, fused_mrf=True)
+    voc_p = get_vocoder(ModelConfig(), checkpoint=ckpt, fused_mrf=False)
+    mel = torch.from_numpy(np.load(os.path.join(mel_dir, names[0])))[None].to(DEVICE)
+    reset_counts()
+    wk = vocoder_infer(mel, voc_k)[0]
+    torch.cuda.synchronize()
+    launches = read_counts()["K4"]
+    wp = vocoder_infer(mel, voc_p)[0]
+    lsb = int(np.abs(wk.astype(np.int32) - wp.astype(np.int32)).max())
+    peak = int(np.abs(wp.astype(np.int32)).max())
+    print(f"[vocoder_finetune] generator_4.pth.tar through get_vocoder: K4 vs plain MRF on a "
+          f"dumped mel of {mel.shape[1]} frames: {lsb} LSB (tol 2; peak {peak}), K4 launches "
+          f"{launches} per forward")
+    assert launches == 2 and lsb <= 2 and peak > 100, (launches, lsb, peak)
+    return {"launches_per_forward": launches, "max_lsb_vs_plain": lsb}
+
+
+def preprocess_path(smi, root):
+    """Phase [preprocess]: `cli.preprocess` on a `make_synthetic_corpus` raw
+    corpus (2 speakers x 4 utterances) on the card and with `--device cpu`,
+    `random` seeded alike: the same files and splits, identical duration and
+    pitch arrays (F0 on the host, the C++ extension, which holds masg_tpu's
+    bar against the numpy DIO on one utterance), mel (linear) and energy
+    within 1e-5 of each file's peak, log-mel within 1e-3, stats.json within
+    1e-5 relative. Then the speed, on a corpus of realistic size (4 speakers
+    x 48 utterances of 24-40 phones, ~3-5 s each, JSUT's ~4 s average): ms
+    per utterance on the card and with `--device cpu`, each split into its
+    parts (`Preprocessor.seconds`: reads, host F0, features, writes,
+    normalization); and on the card the features' first call at a new
+    length (cuFFT's plan cache emptied) against a repeated call."""
+    import random
+
+    import numpy as np
+
+    from masg_tpu_torch.audio.f0 import dio
+    from masg_tpu_torch.audio.f0_native import dio_native
+    from masg_tpu_torch.audio.wavio import read_wav
+    from masg_tpu_torch.cli.preprocess import main as preprocess_main
+    from masg_tpu_torch.data.synthetic import make_synthetic_corpus, write_config_dir
+
+    # g++ builds the F0 extension at first use: build it before the timed runs
+    t0 = time.perf_counter()
+    dio_native(np.zeros(4096), SAMPLE_RATE)
+    print(f"[preprocess] the native F0 extension built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pres, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        raw, pre, _ = make_synthetic_corpus(os.path.join(root, dev), n_speakers=2,
+                                            utts_per_speaker=4, seed=3)
+        cfg_dir = write_config_dir(os.path.join(root, dev, "cfg"), pre,
+                                   os.path.join(root, dev, "out"), raw_path=raw)
+        random.seed(0)
+        t0 = time.perf_counter()
+        preprocess_main(["--config", cfg_dir, "--device", dev])
+        walls[dev] = time.perf_counter() - t0
+        pres[dev] = pre
+    a, b = pres["cuda"], pres["cpu"]
+    for split in ("train.txt", "val.txt", "test.txt"):
+        with open(os.path.join(a, split)) as fa, open(os.path.join(b, split)) as fb:
+            assert fa.read() == fb.read(), split
+    errs = {"mel": 0.0, "log-mel": 0.0, "energy": 0.0}
+    n_utts = 0
+    for kind in ("duration", "pitch", "mel", "energy"):
+        names = sorted(os.listdir(os.path.join(a, kind)))
+        assert names == sorted(os.listdir(os.path.join(b, kind))) and len(names) == 8, kind
+        n_utts = len(names)
+        for name in names:
+            x, r = np.load(os.path.join(a, kind, name)), np.load(os.path.join(b, kind, name))
+            assert x.shape == r.shape and x.dtype == r.dtype, (kind, name)
+            if kind in ("duration", "pitch"):
+                assert np.array_equal(x, r), (kind, name)
+            elif kind == "mel":
+                ex, er = np.exp(x), np.exp(r)
+                errs["mel"] = max(errs["mel"], float(np.abs(ex - er).max() / np.abs(er).max()))
+                errs["log-mel"] = max(errs["log-mel"],
+                                      float(np.abs(x - r).max() / np.abs(r).max()))
+            else:
+                errs[kind] = max(errs[kind], float(np.abs(x - r).max() / np.abs(r).max()))
+    with open(os.path.join(a, "stats.json")) as fa, open(os.path.join(b, "stats.json")) as fb:
+        sa, sb = json.load(fa), json.load(fb)
+    stat_err = max(abs(x - r) / max(abs(r), 1e-30)
+                   for k in ("pitch", "energy") for x, r in zip(sa[k], sb[k]))
+    wav, sr = read_wav(os.path.join(root, "cpu", "raw_data", "SYNTH", "spk00",
+                                    "spk00_utt00.wav"))
+    frame_period = HOP / SAMPLE_RATE * 1000
+    nat, (ref, _) = dio_native(wav, sr, frame_period), dio(wav, sr, frame_period)
+    agree = float(np.mean((nat > 0) == (ref > 0)))
+    both = (nat > 0) & (ref > 0)
+    f0_err = float(np.max(np.abs(nat[both] - ref[both]) / ref[both]))
+    print(f"[preprocess] cli.preprocess, 2 speakers x {n_utts // 2} utterances: card "
+          f"{walls['cuda']:.2f} s, --device cpu {walls['cpu']:.2f} s (start-up included: the "
+          f"speed is measured below); splits, "
+          f"files, duration and pitch identical; mel {errs['mel']:.3g} (log-mel "
+          f"{errs['log-mel']:.3g}), energy {errs['energy']:.3g} of the peak (tol 1e-5, 1e-3, "
+          f"1e-5); stats.json {stat_err:.3g} (tol 1e-5); native vs numpy DIO: voiced decisions "
+          f"agree on {agree:.3f} (> 0.97), F0 {f0_err:.3g} (< 5e-3); on {smi}")
+    assert errs["mel"] <= 1e-5 and errs["energy"] <= 1e-5 and errs["log-mel"] <= 1e-3, errs
+    assert stat_err <= 1e-5 and agree > 0.97 and f0_err < 5e-3, (stat_err, agree, f0_err)
+    return preprocess_speed(smi, root)
+
+
+def preprocess_speed(smi, root):
+    """`cli.preprocess` ms per utterance by part, card and CPU, on 192
+    utterances of ~4 s; the card's features at new and repeated lengths."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.audio.stft import mel_spectrogram_and_energy
+    from masg_tpu_torch.cli.preprocess import main as preprocess_main
+    from masg_tpu_torch.data.synthetic import make_synthetic_corpus, write_config_dir
+
+    speed = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        raw, pre, _ = make_synthetic_corpus(os.path.join(root, "speed_" + dev), n_speakers=4,
+                                            utts_per_speaker=48, seed=5, n_phones=(24, 40))
+        t_corpus = time.perf_counter() - t0
+        cfg_dir = write_config_dir(os.path.join(root, "speed_" + dev, "cfg"), pre,
+                                   os.path.join(root, "speed_" + dev, "out"), raw_path=raw)
+        if dev == "cuda":
+            torch.backends.cuda.cufft_plan_cache.clear()
+        random.seed(0)
+        p = next(iter(preprocess_main(["--config", cfg_dir, "--device", dev]).values()))
+        n = p.n_utterances
+        frames = sum(np.load(os.path.join(pre, "mel", f)).shape[0]
+                     for f in os.listdir(os.path.join(pre, "mel")))
+        speed[dev] = {k: v / n * 1e3 for k, v in p.seconds.items()}
+        speed[dev]["other"] = speed[dev]["total"] - sum(
+            v for k, v in speed[dev].items() if k not in ("total",))
+        speed[dev]["plans_cached"] = (torch.backends.cuda.cufft_plan_cache.size
+                                      if dev == "cuda" else None)
+        audio_s = frames * HOP / SAMPLE_RATE
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in speed[dev].items()
+                          if k not in ("total", "plans_cached"))
+        print(f"[preprocess] speed, --device {dev}: {n} utterances, {audio_s:.1f} s of audio "
+              f"kept ({audio_s / n:.2f} s each; corpus written in {t_corpus:.2f} s, not "
+              f"counted): {speed[dev]['total']:.2f} ms per utterance ({parts}); cuFFT plans "
+              f"cached after it: {speed[dev]['plans_cached']}; on {smi}")
+        assert n >= 180, n  # an utterance with at most one voiced frame is skipped
+
+    # the features alone on the card: the first call at each of 64 new frame counts
+    # (cuFFT's plan cache emptied) against a second call at the same count
+    torch.backends.cuda.cufft_plan_cache.clear()
+    rng = np.random.default_rng(6)
+    new, again = [], []
+    with torch.inference_mode():
+        for i in range(64):
+            x = torch.from_numpy((0.3 * rng.normal(size=HOP * (250 + 3 * i) + 17))
+                                 .astype(np.float32)).cuda()
+            for times in (new, again):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mel, energy = mel_spectrogram_and_energy(x)
+                mel.cpu(), energy.cpu()
+                times.append(time.perf_counter() - t0)
+    speed["cuda_features_new_length_ms"] = float(np.mean(new) * 1e3)
+    speed["cuda_features_repeated_length_ms"] = float(np.mean(again) * 1e3)
+    print(f"[preprocess] features on the card, 64 frame counts of 251-440 (~3-5 s): first "
+          f"call at a new count {speed['cuda_features_new_length_ms']:.3f} ms, repeated "
+          f"{speed['cuda_features_repeated_length_ms']:.3f} ms (mean); on {smi}")
+    return speed
+
+
 def main() -> int:
     import torch
 
@@ -2151,19 +2579,29 @@ def main() -> int:
     train = train_path(smi)
     param_storage_path(train, smi)
     profile_train_step(train, smi)
-    trainer_path()
-    train_entries, k1_train = train_kernel_times(train, smi)
-    entries[0]["float32_train_step"] = k1_train
-    entries[1:1] = train_entries
     import shutil
     import tempfile
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
+    try:
+        cfg_dir = trainer_path(os.path.join(root, "trainer"))
+        dump, mel_dir = dump_mels_path(smi, cfg_dir, root)
+        finetune = vocoder_finetune_path(smi, root, mel_dir)
+    finally:
+        shutil.rmtree(root)
+    train_entries, k1_train = train_kernel_times(train, smi)
+    entries[0]["float32_train_step"] = k1_train
+    entries[0]["dump_mels"] = dump
+    entries[1]["trained_generator"] = finetune
+    entries[1:1] = train_entries
     root = tempfile.mkdtemp(prefix="chip_smoke_ge2e_", dir=os.path.join(REPO, "build"))
     try:
         chunks = ge2e_path(smi, root)
         adversarial = adversarial_path(smi)
         adversarial_clis(chunks)
+        vocoder_train_path(smi)
+        preprocess_path(smi, root)
     finally:
         shutil.rmtree(root)
     for e, name in zip(entries[:3], ("K1", "K2", "K3")):

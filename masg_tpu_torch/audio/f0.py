@@ -15,9 +15,9 @@ implementation of the published WORLD algorithms (Morise et al.):
   StoneMask: refine each voiced frame's F0 by the harmonic-weighted mean
         instantaneous frequency of a windowed segment (two passes).
 
-masg_tpu also has a C++ extension of the same algorithm (masg_tpu/native,
-loaded through ctypes); the port does not have it yet (ROADMAP.md queue 1
-item 10), so `extract_f0` runs this numpy version only.
+The numpy implementation below is the behavioural reference; the C++
+extension (native/f0.cpp, a copy of masg_tpu's, loaded through ctypes by
+audio/f0_native.py) implements the same algorithm for the preprocessing path.
 """
 
 from __future__ import annotations
@@ -238,15 +238,15 @@ def extract_f0(
     x: np.ndarray,
     fs: int,
     frame_period: float = 256 / 22050 * 1000,
-    use_native: bool = False,
+    use_native: bool = True,
 ) -> np.ndarray:
-    """DIO + StoneMask in numpy (masg_tpu's `extract_f0(use_native=False)`).
-
-    `use_native=True` asks for the C++ extension, which the port does not
-    have yet: it raises instead of falling back silently."""
+    """DIO + StoneMask: through the C++ extension by default, as masg_tpu's
+    `extract_f0`, or in numpy with `use_native=False`. Where masg_tpu falls
+    back to numpy when the extension cannot be built or loaded, the port
+    raises."""
     if use_native:
-        raise NotImplementedError(
-            "extract_f0(use_native=True): the native F0 extension is not ported to "
-            "masg_tpu_torch yet (ROADMAP.md queue 1 item 10)")
+        from .f0_native import dio_stonemask_native
+
+        return dio_stonemask_native(x, fs, frame_period)
     f0, t = dio(x, fs, frame_period)
     return stonemask(x, f0, t, fs)

@@ -1,19 +1,18 @@
 # `hann_window` and `mel_filterbank` are copied from masg_tpu/audio/stft.py (numpy, no JAX);
-# `stft_magnitude` is its torch counterpart.
-"""STFT magnitude and the slaney mel filterbank (port of the parts of
-masg_tpu/audio/stft.py that GE2E and the attribute probe need).
+# `stft_magnitude` and `mel_spectrogram_and_energy` are its torch counterparts.
+"""STFT magnitude, the slaney mel filterbank and the FastSpeech2 features
+(port of masg_tpu/audio/stft.py).
 
 Numerically the reference's torchaudio stack (preprocessor/preprocessor.py:
 44-59): Spectrogram(n_fft=1024, win=1024, hop=256, power=1, center=True,
-pad_mode='reflect', periodic Hann window), MelScale(slaney norm and scale).
-`mel_spectrogram_and_energy` (the FastSpeech2 feature extractor) comes with
-ROADMAP.md queue 1 item 10.
+pad_mode='reflect', periodic Hann window), MelScale(slaney norm and scale),
+log(clamp_min(mel, 1e-5)); energy = ||magnitude||_2 per frame.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,3 +102,19 @@ def stft_magnitude(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256
     frames = x[:, 0].unfold(-1, n_fft, hop_length) * window  # (N, n_frames, n_fft)
     mag = torch.fft.rfft(frames, dim=-1).abs()
     return mag.transpose(-1, -2).reshape(*lead, n_fft // 2 + 1, -1)
+
+
+def mel_spectrogram_and_energy(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 256,
+                               win_length: int = 1024, n_mels: int = 80,
+                               sample_rate: int = 22050, f_min: float = 0.0,
+                               f_max: float = 8000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., T) audio -> (log-mel (..., n_mels, frames), energy (..., frames)),
+    frames = 1 + T // hop (reference calc_spectrogram, preprocessor.py:
+    330-336): audio clipped to [-1, 1], the magnitude STFT, the slaney mel,
+    log(clamp_min(1e-5)); energy is the L2 norm over frequency. masg_tpu's
+    `pad_to` (length buckets that reuse XLA compiles) has no counterpart."""
+    mag = stft_magnitude(torch.clamp(audio, -1.0, 1.0), n_fft, hop_length, win_length)
+    fb = torch.as_tensor(mel_filterbank(n_mels, n_fft, sample_rate, f_min, f_max)).to(
+        mag.device, mag.dtype)
+    mel = torch.einsum("...ft,fm->...mt", mag, fb)
+    return torch.log(torch.clamp(mel, min=1e-5)), torch.sqrt(torch.sum(mag * mag, dim=-2))

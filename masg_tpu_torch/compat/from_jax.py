@@ -11,8 +11,13 @@ are the reference's torch names, so the result loads with `strict=True`:
 - `hifigan_state_dict_from_jax` is the inverse of masg_tpu's
   `convert_torch_state_dict` (models/hifigan.py): a conv kernel goes
   (k, in, out) -> (out, in, k), a transposed conv (k, in, out) -> (in, out, k);
+  `hifigan_disc_state_dict_from_jax` does the same for the MPD's
+  (k, 1, in, out) -> (out, in, k, 1) and the MSD's (k, in/groups, out);
 - `adam_state_from_jax` turns masg_tpu's Adam moments into the port's
   `torch.optim.Adam` state under the same mapping;
+- `vocoder_train_state_from_jax` carries a masg_tpu `VocoderTrainState`
+  (weight norm's (v, g), spectral norm's (u, v), both AdamW states) into the
+  port's;
 - `ge2e_state_dict_from_jax` is a copy of masg_tpu's `export_torch_ge2e`
   (GE2E `SpeechEmbedder`), `lang_discriminator_state_dict_from_jax` its
   counterpart for `LangDiscriminator`; both split masg_tpu's folded LSTM
@@ -25,7 +30,7 @@ torch Conv1d weight (out, in, k) <- flax Conv kernel (k, in, out).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,44 +152,151 @@ def adam_state_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
     with its moments; position the schedule at `count` as well
     (`train.optim.set_schedule_count`).
     """
-    exp_avg = fs2_state_dict_from_jax(mu, None, cfg)
-    exp_avg_sq = fs2_state_dict_from_jax(nu, None, cfg)
-    sd = optimizer.state_dict()
+    return _adam_state(count, fs2_state_dict_from_jax(mu, None, cfg),
+                       fs2_state_dict_from_jax(nu, None, cfg), model.named_parameters(),
+                       optimizer)
+
+
+def _adam_state(count, exp_avg: Mapping[str, torch.Tensor],
+                exp_avg_sq: Mapping[str, torch.Tensor], named_params,
+                optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """An Adam/AdamW `state_dict` for `optimizer`, whose parameters are
+    `named_params` in order, from the moments by parameter name."""
     state = {}
-    for i, (name, p) in enumerate(model.named_parameters()):
+    for i, (name, p) in enumerate(named_params):
         state[i] = {"step": torch.tensor(float(np.asarray(count))),
                     "exp_avg": exp_avg[name].to(p.dtype),
                     "exp_avg_sq": exp_avg_sq[name].to(p.dtype)}
-    return {"state": state, "param_groups": sd["param_groups"]}
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+# masg_tpu leaf suffix -> the port's tensor name under a conv module: plain
+# weights, weight norm's (v, g) (torch's `original1`, `original0`), biases
+_CONV_LEAVES = {"kernel": "weight", "kernel_v": "parametrizations.weight.original1",
+                "kernel_g": "parametrizations.weight.original0", "bias": "bias"}
+_SN_KERNEL = "parametrizations.weight.original"  # a spectral-norm kernel
+
+
+def _conv_leaves(out: Dict[str, torch.Tensor], prefix: str, p: Mapping[str, Any], name: str,
+                 perm, sn: bool = False) -> None:
+    """The leaves of masg_tpu conv `name` in `p` (a kernel, or weight norm's
+    v and g, each `perm`-transposed to torch's layout, and a bias) ->
+    `out[prefix + ...]`; with `sn` the kernel is a spectral-norm original."""
+    for kind, leaf in _CONV_LEAVES.items():
+        x = p.get(f"{name}_{kind}")
+        if x is None:
+            continue
+        if kind == "kernel" and sn:
+            leaf = _SN_KERNEL
+        x = np.asarray(x)
+        out[f"{prefix}.{leaf}"] = _t(x if kind == "bias" else np.transpose(x, perm))
+
+
+def _n_convs(p: Mapping[str, Any], stem: str) -> int:
+    """How many `{stem}_{i}` convs `p` holds (plain or weight-normed)."""
+    return len({k[len(stem) + 1:].split("_")[0] for k in p
+                if k.startswith(stem + "_") and k[len(stem) + 1:].split("_")[0].isdigit()})
 
 
 def hifigan_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """masg_tpu HiFiGANGenerator params -> the port's HiFiGANGenerator state_dict."""
+    """masg_tpu HiFiGANGenerator params -> the port's HiFiGANGenerator
+    state_dict. A weight-normed tree (masg_tpu's trainer's `kernel_v` /
+    `kernel_g`) gives the names of the port's weight-normed generator."""
     out: Dict[str, torch.Tensor] = {}
-
-    def conv(prefix, name):
-        out[prefix + ".weight"] = _t(np.transpose(np.asarray(params[name + "_kernel"]),
-                                                  (2, 1, 0)))
-        out[prefix + ".bias"] = _t(params[name + "_bias"])
-
-    conv("conv_pre", "conv_pre")
-    n_up = sum(1 for k in params if k.startswith("ups_") and k.endswith("_kernel"))
+    conv = (2, 1, 0)
+    _conv_leaves(out, "conv_pre", params, "conv_pre", conv)
     n_res = sum(1 for k in params if k.startswith("resblock_0_"))
-    for i in range(n_up):
-        out[f"ups.{i}.weight"] = _t(np.transpose(np.asarray(params[f"ups_{i}_kernel"]),
-                                                 (1, 2, 0)))
-        out[f"ups.{i}.bias"] = _t(params[f"ups_{i}_bias"])
+    for i in range(_n_convs(params, "ups")):
+        _conv_leaves(out, f"ups.{i}", params, f"ups_{i}", (1, 2, 0))
         for j in range(n_res):
             block = params[f"resblock_{i}_{j}"]
-            n_dil = sum(1 for k in block if k.startswith("convs1_") and k.endswith("_kernel"))
             for cn in ("convs1", "convs2"):
-                for c in range(n_dil):
-                    pre = f"resblocks.{i * n_res + j}.{cn}.{c}"
-                    out[pre + ".weight"] = _t(np.transpose(
-                        np.asarray(block[f"{cn}_{c}_kernel"]), (2, 1, 0)))
-                    out[pre + ".bias"] = _t(block[f"{cn}_{c}_bias"])
-    conv("conv_post", "conv_post")
+                for c in range(_n_convs(block, cn)):
+                    _conv_leaves(out, f"resblocks.{i * n_res + j}.{cn}.{c}", block,
+                                 f"{cn}_{c}", conv)
+    _conv_leaves(out, "conv_post", params, "conv_post", conv)
     return out
+
+
+def hifigan_disc_state_dict_from_jax(mpd_params: Mapping[str, Any], msd_params: Mapping[str, Any],
+                                     sn_state: Optional[Mapping[str, Any]] = None
+                                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """masg_tpu MultiPeriodDiscriminator and MultiScaleDiscriminator params
+    -> the port's (MPD, MSD) state_dicts. MPD kernels (k, 1, in, out) go to
+    Conv2d's (out, in, k, 1), its `disc_{p}` to `discriminators.{i}` in
+    ascending period order; MSD kernels (k, in/groups, out) to Conv1d's
+    (out, in/groups, k). Weight-normed trees give the parametrized names;
+    `sn_state` (masg_tpu's spectral-norm (u, v) by kernel path) marks the
+    spectral-norm kernels and gives their `_u` / `_v` buffers."""
+    sn_state = sn_state or {}
+    mpd: Dict[str, torch.Tensor] = {}
+    periods = sorted(int(k[len("disc_"):]) for k in mpd_params)
+    for i, period in enumerate(periods):
+        p = mpd_params[f"disc_{period}"]
+        for j in range(_n_convs(p, "convs")):
+            _conv_leaves(mpd, f"discriminators.{i}.convs.{j}", p, f"convs_{j}", (3, 2, 0, 1))
+        _conv_leaves(mpd, f"discriminators.{i}.conv_post", p, "conv_post", (3, 2, 0, 1))
+    msd: Dict[str, torch.Tensor] = {}
+    for i in range(len(msd_params)):
+        scope = f"disc_{i}"
+        p = msd_params[scope]
+        names = [(f"convs.{j}", f"convs_{j}") for j in range(_n_convs(p, "convs"))]
+        for mod, name in names + [("conv_post", "conv_post")]:
+            prefix = f"discriminators.{i}.{mod}"
+            sn = sn_state.get(f"{scope}/{name}_kernel")
+            _conv_leaves(msd, prefix, p, name, (2, 1, 0), sn=sn is not None)
+            if sn is not None:
+                msd[f"{prefix}.parametrizations.weight.0._u"] = _t(sn["u"])
+                msd[f"{prefix}.parametrizations.weight.0._v"] = _t(sn["v"])
+    return mpd, msd
+
+
+def _adam_moments(opt_state) -> Tuple[Any, Any, Any]:
+    """(count, mu, nu) of the scale_by_adam state inside an optax chain state."""
+    for part in opt_state:
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return part.count, part.mu, part.nu
+    raise ValueError("no Adam moments in this optax state")
+
+
+def vocoder_train_state_from_jax(state, target):
+    """A masg_tpu `train.vocoder.VocoderTrainState` (numpy leaves, e.g. from
+    `jax.device_get`) -> `target`, the port's `train.vocoder.
+    VocoderTrainState` of the same config, loaded in place and returned:
+
+    - weight norm's `kernel_v` / `kernel_g` become `original1` / `original0` in
+      torch layout (the `ups.i` kernels' g is per input channel, torch's dim 0
+      of a transposed conv);
+    - spectral norm's (u, v) become the `_u` / `_v` buffers as they are
+      (masg_tpu's `_sn_matrix` flattens fan_in in torch's (in, k) order);
+    - both AdamW states' moments and step counts; the step.
+    """
+    disc = state.disc_params
+    gen_sd = hifigan_state_dict_from_jax(state.gen_params)
+    mpd_sd, msd_sd = hifigan_disc_state_dict_from_jax(disc["mpd"], disc["msd"], state.sn_state)
+    target.generator.load_state_dict(gen_sd, strict=True)
+    target.mpd.load_state_dict(mpd_sd, strict=True)
+    target.msd.load_state_dict(msd_sd, strict=True)
+
+    count, mu, nu = _adam_moments(state.gen_opt)
+    target.gen_opt.load_state_dict(_adam_state(
+        count, hifigan_state_dict_from_jax(mu), hifigan_state_dict_from_jax(nu),
+        target.generator.named_parameters(), target.gen_opt))
+
+    def disc_moments(tree):
+        # the SN kernels' moments sit at the spectral-norm original's name
+        mpd, msd = hifigan_disc_state_dict_from_jax(tree["mpd"], tree["msd"], state.sn_state)
+        out = {f"mpd.{k}": v for k, v in mpd.items()}
+        out.update({f"msd.{k}": v for k, v in msd.items()})
+        return out
+
+    count, mu, nu = _adam_moments(state.disc_opt)
+    named = [(f"mpd.{n}", p) for n, p in target.mpd.named_parameters()]
+    named += [(f"msd.{n}", p) for n, p in target.msd.named_parameters()]
+    target.disc_opt.load_state_dict(_adam_state(count, disc_moments(mu), disc_moments(nu),
+                                                named, target.disc_opt))
+    target.step = int(np.asarray(state.step))
+    return target
 
 
 def _lstm_layer(out: Dict[str, torch.Tensor], prefix: str, cell: Mapping[str, Any],

@@ -199,6 +199,15 @@ def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
     if x.device.type != "cuda":
         return fused_mrf_stage_plain(x, block_params, kernel_sizes, dilation_sizes)
 
+    # K4 writes its result through ctypes, outside autograd: a backward
+    # through it would give no gradient to anything below, and say nothing
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for bp in block_params for t in bp.values())):
+        raise RuntimeError(
+            "fused_mrf_stage: kernel K4 is inference-only (it has no backward), but its "
+            "input or weights require grad; train the generator with fused_mrf=False, "
+            "or run it under torch.inference_mode() / torch.no_grad()")
+
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"fused_mrf kernel takes f32 or bf16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():

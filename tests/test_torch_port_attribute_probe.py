@@ -6,7 +6,6 @@ masg_tpu's four tests/test_attribute_probe.py cases re-run on the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from masg_tpu.audio.f0 import extract_f0 as jax_extract_f0
@@ -66,11 +65,13 @@ def test_extract_f0_is_masg_tpus_numpy_path():
     x = np.sin(2 * np.pi * 160 * t) + 0.3 * np.sin(2 * np.pi * 320 * t) \
         + 0.05 * rng.normal(size=t.size)
     for sig in (x, rng.normal(size=8000), np.zeros(4000)):
-        got = extract_f0(sig, 22050)
+        got = extract_f0(sig, 22050, use_native=False)
         want = jax_extract_f0(sig, 22050, use_native=False)
         assert got.dtype == want.dtype and np.array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        extract_f0(x, 22050, use_native=True)
+        # the default is the native extension, as in masg_tpu
+        got = extract_f0(sig, 22050)
+        want = jax_extract_f0(sig, 22050)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 # masg_tpu's tests/test_attribute_probe.py, on the port

@@ -387,3 +387,42 @@ def test_streaming_vocoder_on_the_card_matches_one_shot():
         assert np.abs(full.astype(np.int32)).max() > 1000
         diff = np.abs(stream.astype(np.int32) - full.astype(np.int32))
         assert diff.max() <= 2, (t, int(diff.max()), float((diff > 0).mean()))
+
+
+@pytest.mark.cuda
+def test_fused_mrf_refuses_a_backward_on_the_card():
+    """K4 has no backward: on the card `fused_mrf_stage` raises when its input
+    or its weights require grad (a generator built with the default
+    `fused_mrf=True` and trained would otherwise get no gradient below its
+    fused stages); under `torch.no_grad()` it launches; the vocoder trainer's
+    generator runs the plain MRF and every parameter gets a gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
+    from masg_tpu_torch.train.vocoder import init_vocoder_train_state, make_vocoder_train_step
+
+    gen = HiFiGANGenerator()  # V1: stages C = 256, 128 (cuDNN), 64, 32 (K4)
+    init_random_weights(gen, torch.Generator().manual_seed(2))
+    gen.cuda()
+    mel = torch.randn(1, 20, 80, device="cuda")
+    with pytest.raises(RuntimeError, match="inference-only"):
+        gen(mel)
+    with pytest.raises(RuntimeError, match="fused_mrf=False"):
+        gen(mel.requires_grad_())
+    n0 = fused_mrf_stage.launches
+    with torch.no_grad():
+        gen(mel)
+    assert fused_mrf_stage.launches == n0 + 2
+
+    from masg_tpu_torch.infer.vocoder import DEFAULT_HIFIGAN_CONFIG
+
+    cfg = {**DEFAULT_HIFIGAN_CONFIG, "segment_size": 2048,
+           "mpd_periods": [2, 3], "mpd_channels": [4, 8, 16, 16], "msd_scales": 2,
+           "msd_layers": [[8, 15, 1, 1], [16, 41, 4, 4], [16, 5, 1, 1]]}
+    state = init_vocoder_train_state(cfg, 1, device="cuda")
+    n0 = fused_mrf_stage.launches
+    state, m = make_vocoder_train_step(cfg)(state, 0.5 * torch.randn(2, 2048, device="cuda"))
+    assert fused_mrf_stage.launches == n0 and torch.isfinite(m.gen_loss)
+    assert all(p.grad is not None and bool(p.grad.abs().max() > 0)
+               for p in state.generator.parameters())

@@ -60,9 +60,12 @@ def test_every_module_imports_with_jax_and_masg_tpu_blocked():
                        timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr
     *_, names, count = r.stdout.strip().splitlines()
-    assert int(count) >= 67
+    assert int(count) >= 76
     for sub in ("preprocessor.ge2e_preprocess", "eval.attribute_probe", "train.ge2e",
-                "models.speaker_encoder", "cli.train_speech_embedder", "cli.train_ganlike"):
+                "models.speaker_encoder", "cli.train_speech_embedder", "cli.train_ganlike",
+                "models.hifigan_disc", "train.vocoder", "data.vocoder", "cli.train_vocoder",
+                "cli.dump_mels", "cli.preprocess", "audio.f0_native",
+                "preprocessor.textgrid", "preprocessor.preprocessor"):
         assert f"masg_tpu_torch.{sub}" in names.split(), sub
 
 
@@ -130,8 +133,9 @@ def test_cli_device_flag_defaults_to_cuda(tmp_path):
         pytest.skip("a CUDA card is present: the default device is usable")
     import json
 
-    from masg_tpu_torch.cli import (build_distribution, examples_gen, examples_gen_distri,
-                                    serve, speaker_gen)
+    from masg_tpu_torch.cli import (build_distribution, dump_mels, examples_gen,
+                                    examples_gen_distri, preprocess, serve, speaker_gen,
+                                    train_vocoder)
 
     for name in ("preprocess.yaml", "model.yaml", "train.yaml"):
         (tmp_path / name).write_text("{}\n")
@@ -147,6 +151,12 @@ def test_cli_device_flag_defaults_to_cuda(tmp_path):
     for cli, args in cases:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["-c", str(tmp_path), *args])
+    for cli, args in ((dump_mels, ["-c", str(tmp_path), "--restore_step", "1", "--out",
+                                   str(out)]),
+                      (preprocess, ["--config", str(tmp_path)]),
+                      (train_vocoder, ["--wav_dir", str(tmp_path), "--out", str(out)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(args)
     assert not out.exists()
 
 
@@ -166,6 +176,12 @@ def test_unported_flags_raise_not_implemented():
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
         serve(["-c", "unused", "--device", "cpu", "--data_parallel"])
+
+    from masg_tpu_torch.cli.train_vocoder import main as train_vocoder
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        train_vocoder(["--wav_dir", "unused", "--out", "unused", "--device", "cpu",
+                       "--n_devices", "2"])
 
 
 def test_kernel_loader_raises_without_nvcc():
