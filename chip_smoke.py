@@ -106,16 +106,34 @@ Phases (any failure exits non-zero; nothing is caught):
    speed on 4 speakers x 48 utterances of ~4 s, each device's ms per
    utterance split into reads, host F0, features, writes and normalization,
    and the card's features at new against repeated frame counts;
-15. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+15. [jdit]: the `use_jdit` train step (FastSpeech2 at the flagship width +
+   the JDIT teacher at the reference dims: two 1024-wide LSTM cells,
+   prenet 256, attention 128, location 32 x 31) on [train]'s batch, f32:
+   kernel vs plain path with dropout off (losses with the teacher's MSE,
+   every gradient, the teacher's included), exactly 10 launches each of
+   K1-K3 per step, ms per step on both paths (medians of 4, in turns), a
+   profiler window over one step (device ops, idle share, K1-K3 device
+   time, heaviest ops) and its peak memory; the tiny width card vs CPU
+   after 3 steps; `cli.make_config JSUT --use_jdit` pointed at a synthetic
+   corpus, `cli.train` (2 steps, 20 launches each of K1-K3) and
+   `cli.evaluate` twice (the same losses) on the card;
+16. [melgan]: text->wav at B=16 through the default MelGAN (seeded random
+   weights) behind the f32 flagship FastSpeech2: K1 exactly 10 and K4 0
+   launches per forward, kernel vs plain path (mel_len identical, wav
+   within 2 LSB), RTF and vocoder ms (medians of 3, in turns),
+   `vocode_streaming` of one utterance against its one-shot vocode, one
+   `ServingEngine` dispatch with the MelGAN vocoder (K1 10, K4 0);
+17. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
    step; `serve`: K1's and K4's launches under the 32 served requests and
    their device time per B=1 request at bucket 128; `adversarial`: K1's,
    K2's and K3's launches and device time per float32 `--use_clf` step;
-   `dump_mels` on K1: launches, batches and device time per batch;
-   `trained_generator` on K4: launches per forward of the exported
-   generator);
-16. the `{"ok": true, ...}` line, last.
+   `jdit`: the same per float32 `use_jdit` step; `melgan`: K1's and K4's
+   launches per MelGAN text->wav; `dump_mels` on K1: launches, batches and
+   device time per batch; `trained_generator` on K4: launches per forward
+   of the exported generator);
+18. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -160,6 +178,12 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - vocoder fine-tuning: resumed losses within 1e-5 relative (cuDNN's
   backward algorithms are not bitwise deterministic); the exported
   generator, K4 vs the plain MRF, within 2 LSB.
+- use_jdit step float32: the train step's bars (losses within 1e-5
+  relative, every gradient within 2e-3, the teacher's included); the tiny
+  width card vs CPU within 1e-5 relative after 3 steps (dropout off).
+- MelGAN text->wav float32: mel_len identical, wav within 2 LSB (the main
+  path's bar); streamed within 1 LSB of one-shot (masg_tpu's streaming
+  bar).
 - preprocess, card vs CPU: splits, files, duration and pitch identical;
   the mel (linear, exp of the stored log-mel) and energy within 1e-5 of
   each file's peak, the log-mel within 1e-3 (at near-silent bins, log-mel
@@ -2546,6 +2570,301 @@ def preprocess_speed(smi, root):
     return speed
 
 
+def jdit_config(width=None):
+    """The flagship config with the JDIT teacher at the reference dims (1024 /
+    1024, prenet 256, attention 128, location 32 x 31), or `width`'s
+    (model.yaml overrides: a tiny config for the card-vs-CPU check)."""
+    cfg = flagship_config()
+    cfg.model.jdit.use_jdit = True
+    for section, values in (width or {}).items():
+        for k, v in values.items():
+            setattr(getattr(cfg.model, section), k, v)
+    return cfg
+
+
+def jdit_state(cfg, kernels, device=None, dropout=False):
+    """A fresh `use_jdit` train state on `device` from seed 0 (the same
+    weights on both paths), its step, and the model; every dropout off
+    unless `dropout`."""
+    import torch
+
+    from masg_tpu_torch.models import FastSpeech2
+    from masg_tpu_torch.train.state import create_train_state
+    from masg_tpu_torch.train.step import make_train_step
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = FastSpeech2.from_config(cfg, use_flash=kernels)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        dec = model.jdit.decoder
+        dec.prenet.p = dec.p_attention_dropout = dec.p_decoder_dropout = 0.0
+    model.to(device or DEVICE)
+    st = create_train_state(model, cfg.train.optimizer, cfg.model.transformer.encoder_hidden)
+    return st, make_train_step(model, use_jdit=True)
+
+
+JDIT_TINY = {"transformer": {"encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 64,
+                             "decoder_hidden": 64, "conv_filter_size": 128},
+             "variance_predictor": {"filter_size": 64},
+             "jdit": {"attention_rnn_dim": 32, "decoder_rnn_dim": 24, "prenet_hidden": 16,
+                      "attention_dim": 16, "location_filters": 8, "location_kernel": 5}}
+
+
+def jdit_path(smi, root):
+    """Phase [jdit]: the `use_jdit` train step (FastSpeech2 at the flagship
+    width + the JDIT teacher at the reference dims) on [train]'s batch, f32:
+    kernel vs plain path with dropout off (losses, every gradient, the
+    teacher's included), exactly 10 launches each of K1-K3 per step, ms per
+    step on both paths (medians, in turns), a profiler window over one
+    kernel-path step (device ops, idle share, K1-K3 device time, heaviest
+    ops), peak memory; the tiny width card vs CPU after 3 steps; then
+    `cli.make_config JSUT --use_jdit` pointed at a synthetic corpus,
+    `cli.train` 2 steps and `cli.evaluate` on the card. Returns {kernel:
+    {launches, device_ms_per_step}} of the step."""
+    import shutil
+
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from masg_tpu_torch.cli.evaluate import main as evaluate_main
+    from masg_tpu_torch.cli.make_config import main as make_config
+    from masg_tpu_torch.cli.train import main as train_main
+    from masg_tpu_torch.data.synthetic import write_preprocessed_corpus
+    from masg_tpu_torch.train.step import batch_to_device
+
+    cfg = jdit_config()
+    db = batch_to_device(example_inputs(B=B, L=L, T=T_MEL), DEVICE, torch.float32)
+    sides = {}
+    for kernels in (True, False):
+        st, step = jdit_state(cfg, kernels)
+        total, losses, eloss, _, out = step.loss_fn(st.model, db, 0, seed=0)
+        mse = total - losses.total
+        total.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().clone() for n, p in st.model.named_parameters()
+                 if p.grad is not None}
+        vals = [float(x.detach()) for x in (total, *losses, eloss, mse)]
+        sides[kernels] = (st, step, vals, grads)
+    (sk, stepk, lk, gk), (sp, stepp, lp, gp) = sides[True], sides[False]
+    n_teacher = sum(1 for n in gk if n.startswith("jdit."))
+    assert gk.keys() == gp.keys() and n_teacher > 0
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp))
+    grad_err = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+    teacher_err = max((gk[n] - gp[n]).abs().max().item() for n in gk if n.startswith("jdit."))
+    n_params = sum(p.numel() for p in sk.model.jdit.parameters())
+    print(f"[jdit] float32 kernel vs plain path, dropout off: losses (total, mel, postnet, "
+          f"pitch, energy, duration, eloss, teacher mse) {[round(x, 5) for x in lk]}, max "
+          f"relative err {loss_err:.3g} (tol 1e-5); max|grad err| {grad_err:.3g} over "
+          f"{len(gk)} tensors, the teacher's {n_teacher} ({n_params / 1e6:.2f}M parameters) "
+          f"{teacher_err:.3g} (tol 2e-3)")
+    assert loss_err <= 1e-5 and grad_err <= 2e-3, (loss_err, grad_err)
+
+    # launches and time per step through the entry point, dropout on
+    paths = {k: jdit_state(cfg, k, dropout=True) for k in (True, False)}
+    del sides, sk, sp, stepk, stepp, gk, gp
+    reset_counts()
+    st, step = paths[True]
+    st, m = step(st, db, 0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts == {"K1": 10, "K2": 10, "K3": 10, "K4": 0}, counts
+    assert torch.isfinite(m.total) and torch.isfinite(m.grad_norm)
+    paths[False][1](paths[False][0], db, 0)  # the plain path's warm-up
+    walls = {True: [], False: []}
+    for r in range(4):
+        for kernels in ((True, False) if r % 2 == 0 else (False, True)):
+            st, step = paths[kernels]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, db, 1 + r)
+            torch.cuda.synchronize()
+            walls[kernels].append(time.perf_counter() - t0)
+            assert torch.isfinite(m.total), kernels
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    print(f"[jdit] use_jdit step, float32: kernel path {med[True]:.1f} ms/step, plain path "
+          f"{med[False]:.1f} ms/step (medians of 4 after 1 warm-up, in turns; walls "
+          f"{[round(x * 1e3, 1) for x in walls[True]]} / "
+          f"{[round(x * 1e3, 1) for x in walls[False]]} ms) on {smi}")
+
+    st, step = paths[True]
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(st, db, 9)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    assert kern, "the profiler saw no device work"
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
+    fields = {}
+    for name, match in (("K1", "flash_fwd"), ("K2", "flash_dq"), ("K3", "flash_dkv")):
+        dev = sum(e.time_range.end - e.time_range.start for e in kern if match in e.name) / 1e3
+        fields[name] = {"step": "use_jdit, float32", "launches": counts[name],
+                        "device_ms_per_step": dev}
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    print(f"[profile] use_jdit kernel path, one step: wall {wall:.1f} ms (profiled), device "
+          f"busy {busy:.1f} ms ({100 * (1 - busy / wall):.1f} % idle), {len(kern)} device "
+          f"ops; K1 {fields['K1']['device_ms_per_step']:.3f}, K2 "
+          f"{fields['K2']['device_ms_per_step']:.3f}, K3 "
+          f"{fields['K3']['device_ms_per_step']:.3f} ms; peak memory {peak:.2f} GiB; against "
+          f"the unprofiled median step ({med[True]:.1f} ms) {100 * (1 - busy / med[True]):.1f} "
+          f"% idle; on {smi}")
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+        print(f"[profile]   {t / 1e3:8.3f} ms/step  {name[:100]}")
+    del paths, st, step
+
+    # the tiny width, card (K1-K3) vs CPU (plain versions), 3 steps
+    tiny = jdit_config(JDIT_TINY)
+    batches = [example_inputs(B=4, L=16, T=64, seed=s) for s in range(3)]
+    losses = {}
+    for device in (DEVICE, "cpu"):
+        st, step = jdit_state(tiny, True, device=device)
+        losses[device] = []
+        for i, b in enumerate(batches):
+            st, m = step(st, batch_to_device(b, device, torch.float32), i)
+            losses[device].append(float(m.total))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE], losses["cpu"]))
+    print(f"[jdit] tiny width, 3 steps, card vs CPU (dropout off): losses "
+          f"{[round(x, 6) for x in losses[DEVICE]]} vs {[round(x, 6) for x in losses['cpu']]}, "
+          f"max relative err {rel:.3g} (tol 1e-5)")
+    assert rel <= 1e-5, losses
+
+    # cli.make_config JSUT --use_jdit -> a synthetic corpus -> cli.train, cli.evaluate
+    pre = write_preprocessed_corpus(os.path.join(root, "jdit_pre"), n_utts=32, n_speakers=4,
+                                    n_val=4, phones=(16, 48), frames_per_phone=(1, 4))
+    cfg_dir = os.path.join(root, "jdit_cfg")
+    make_config(["JSUT", "-o", cfg_dir, "--use_jdit"])
+    with open(os.path.join(cfg_dir, "preprocess_JSUT.yaml")) as f:
+        corpus = yaml.safe_load(f)
+    corpus["path"]["preprocessed_path"] = pre
+    corpus["accent"]["use_accent"] = False  # the synthetic corpus has no accent files
+    with open(os.path.join(cfg_dir, "train.yaml")) as f:
+        train = yaml.safe_load(f)
+    train["path"] = {k: os.path.join(root, "jdit_out", k) for k in train["path"]}
+    train["step"].update(save_step=2, val_step=1000, log_step=1)
+    for name, body in (("preprocess_JSUT.yaml", corpus), ("train.yaml", train)):
+        with open(os.path.join(cfg_dir, name), "w") as f:
+            yaml.safe_dump(body, f, sort_keys=False)
+    for name in ("stats.json", "speakers.json"):
+        shutil.copy(os.path.join(pre, name), cfg_dir)
+    reset_counts()
+    t0 = time.time()
+    state = train_main(["-c", cfg_dir, "--max_steps", "2"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert state.step == 2 and state.model.jdit is not None
+    assert counts == {"K1": 20, "K2": 20, "K3": 20, "K4": 0}, counts
+    t_train = time.time() - t0
+    means = evaluate_main(["-c", cfg_dir, "--restore_step", "2"])
+    again = evaluate_main(["-c", cfg_dir, "--restore_step", "2"])
+    assert len(means) == 6 and all(math.isfinite(x) for x in means), means
+    rel = max(abs(a - b) / abs(b) for a, b in zip(means, again))
+    print(f"[jdit] cli.make_config JSUT --use_jdit -> cli.train: 2 steps in {t_train:.1f} s "
+          f"(launches {counts}); cli.evaluate on step 2: total loss {means[0]:.4f}, a second "
+          f"evaluate within {rel:.3g} relative (tol 1e-5: the teacher's eval masks are "
+          f"seeded)")
+    assert rel <= 1e-5, (means, again)
+    return fields
+
+
+def melgan_path(smi):
+    """Phase [melgan]: text->wav at B = 16 through the default MelGAN (seeded
+    random weights) behind the f32 flagship FastSpeech2: K1 exactly 10 and K4
+    0 launches per forward; the kernel path against the plain path (mel_len
+    identical, wav within 2 LSB); RTF and vocoder ms (medians of 3, in turns);
+    `vocode_streaming` of one utterance against its one-shot vocode within 1
+    LSB; one `ServingEngine` dispatch with the MelGAN vocoder. Returns the
+    launches per forward."""
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.infer.serving import ServingEngine
+    from masg_tpu_torch.infer.vocoder import (measure_receptive_field_frames,
+                                              vocode_streaming, vocoder_infer)
+    from masg_tpu_torch.models.melgan import MelGANGenerator
+
+    cfg = flagship_config()
+    cfg.model.vocoder.model = "MelGAN"
+    batch = example_inputs(B=B, L=L, T=T_MEL)
+    paths = {k: build_path(cfg, torch.float32, k) for k in (True, False)}
+    assert isinstance(paths[True][1].generator, MelGANGenerator)
+    with torch.inference_mode():
+        reset_counts()
+        outk, wk = text_to_wav(*paths[True], batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        outp, wp = text_to_wav(*paths[False], batch)
+    assert counts == {"K1": 10, "K2": 0, "K3": 0, "K4": 0}, counts
+    assert torch.equal(outk.mel_len, outp.mel_len) and int(outk.mel_len.min()) > 0
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in zip(wk, wp))
+    level = max(int(np.abs(w.astype(np.int32)).max()) for w in wk)
+    print(f"[melgan] text->wav B={B}, float32, default MelGAN (seeded): launches per forward "
+          f"{counts}; kernel vs plain mel_len identical, wav max {lsb} LSB (tol 2), peak "
+          f"|sample| {level}")
+    assert lsb <= 2 and level > 100
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, r
+
+    from masg_tpu_torch.infer.synthesis import synthesize_batch
+
+    walls = {(k, part): [] for k in (True, False) for part in ("text2wav", "vocoder")}
+    with torch.inference_mode():
+        for k in (True, False):
+            text_to_wav(*paths[k], batch)
+        for r in range(3):
+            for k in ((True, False) if r % 2 == 0 else (False, True)):
+                model, vocoder = paths[k]
+                walls[(k, "text2wav")].append(timed(lambda: text_to_wav(model, vocoder,
+                                                                        batch))[0])
+                out = synthesize_batch(model, batch, max_mel_len=T_MEL)
+                walls[(k, "vocoder")].append(timed(lambda: vocoder(out.postnet_mel))[0])
+    audio_s = int(outk.mel_len.sum()) * HOP / SAMPLE_RATE  # [rtf]'s: the frames synthesized
+    med = {key: statistics.median(v) for key, v in walls.items()}
+    for k in (True, False):
+        print(f"[melgan] {'kernel' if k else 'plain'} path: text->wav "
+              f"{med[(k, 'text2wav')] * 1e3:.1f} ms (RTF {audio_s / med[(k, 'text2wav')]:.1f}x "
+              f"on {audio_s:.1f} s of audio), MelGAN vocoder {med[(k, 'vocoder')] * 1e3:.1f} ms "
+              f"(medians of 3, in turns) on {smi}")
+
+    model, vocoder = paths[True]
+    with torch.inference_mode():
+        mel = outk.postnet_mel[:1, : int(outk.mel_len[0])]
+        full = vocoder_infer(mel, vocoder)[0]
+        field = measure_receptive_field_frames(vocoder)
+        stream = np.concatenate(list(vocode_streaming(vocoder, mel, chunk_frames=128)))
+    s_lsb = int(np.abs(stream.astype(np.int32) - full.astype(np.int32)).max())
+    print(f"[melgan] vocode_streaming of {mel.shape[1]} frames (receptive field {field} "
+          f"frames, chunks of 128): {s_lsb} LSB from one-shot (tol 1)")
+    assert stream.shape == full.shape and s_lsb <= 1
+
+    engine = ServingEngine(cfg, state_dict=model.state_dict(), vocoder=vocoder,
+                           text_buckets=(128,), device=DEVICE)
+    ids = [int(x) for x in batch["texts"][0, : batch["src_lens"][0]]]
+    engine.synthesize(ids)  # warm-up
+    reset_counts()
+    t, r = timed(lambda: engine.synthesize(ids))
+    counts_srv = read_counts()
+    assert counts_srv == {"K1": 10, "K2": 0, "K3": 0, "K4": 0}, counts_srv
+    assert r["wav"].dtype == np.int16 and r["wav"].shape == (r["mel_len"] * HOP,)
+    assert r["mel_len"] > 0
+    print(f"[melgan] ServingEngine dispatch with MelGAN, bucket 128, B = 1: mel_len "
+          f"{r['mel_len']}, {t * 1e3:.1f} ms, launches {counts_srv}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2602,10 +2921,15 @@ def main() -> int:
         adversarial_clis(chunks)
         vocoder_train_path(smi)
         preprocess_path(smi, root)
+        jdit = jdit_path(smi, root)
     finally:
         shutil.rmtree(root)
+    melgan = melgan_path(smi)
     for e, name in zip(entries[:3], ("K1", "K2", "K3")):
         e["adversarial"] = adversarial[name]
+        e["jdit"] = jdit[name]
+    for e, name in zip((entries[0], entries[3]), ("K1", "K4")):
+        e["melgan"] = {"path": "text->wav, MelGAN, float32", "launches_per_forward": melgan[name]}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

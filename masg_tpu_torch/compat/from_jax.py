@@ -7,7 +7,11 @@ are the reference's torch names, so the result loads with `strict=True`:
 - `fs2_state_dict_from_jax` is a copy of masg_tpu's `export_torch_fastspeech2`
   + `reference_buffers` (compat/torch_fs2.py), kept here so the port imports
   nothing of masg_tpu. The pitch/energy bins are `make_bins`' values, the
-  edges masg_tpu's own forward uses;
+  edges masg_tpu's own forward uses. A JDIT teacher's tree maps too
+  (`jdit_state_dict_from_jax`), its two `OptimizedLSTMCell`s as
+  `_lstm_layer` splits them;
+- `melgan_state_dict_from_jax` maps masg_tpu's `MelGANGenerator` params
+  onto the port's `MelGANGenerator`;
 - `hifigan_state_dict_from_jax` is the inverse of masg_tpu's
   `convert_torch_state_dict` (models/hifigan.py): a conv kernel goes
   (k, in, out) -> (out, in, k), a transposed conv (k, in, out) -> (in, out, k);
@@ -80,16 +84,39 @@ def _variance_predictor(out, prefix, p):
     _lin(out, f"{prefix}.linear_layer", p["linear_layer"])
 
 
+def jdit_state_dict_from_jax(params: Mapping[str, Any], halve_bias: bool = True
+                             ) -> Dict[str, torch.Tensor]:
+    """masg_tpu `JDIT` params (`{"decoder": ...}`) -> the port's `JDIT`
+    state_dict (masg_tpu's `export_torch_fastspeech2`, compat/torch_fs2.py:
+    311-332, without its `jdit.` prefix). See `_lstm_layer` for the bias."""
+    out: Dict[str, torch.Tensor] = {}
+    p = params["decoder"]
+    _lin(out, "decoder.prenet.layers.0.linear_layer", p["prenet"]["linear_0"])
+    _lin(out, "decoder.prenet.layers.1.linear_layer", p["prenet"]["linear_1"])
+    _lin(out, "decoder.attention_layer.memory_layer.linear_layer", p["memory_layer"])
+    st = p["step"]
+    for rnn in ("attention_rnn", "decoder_rnn"):
+        _lstm_layer(out, f"decoder.{rnn}", st[rnn], "", halve_bias)
+    att = "decoder.attention_layer"
+    _lin(out, f"{att}.query_layer.linear_layer", st["query_layer"])
+    _lin(out, f"{att}.v.linear_layer", st["v"])
+    _conv(out, f"{att}.location_layer.location_conv.conv", st["location_conv"])
+    _lin(out, f"{att}.location_layer.location_dense.linear_layer", st["location_dense"])
+    _lin(out, "decoder.linear_projection.linear_layer", st["linear_projection"])
+    _lin(out, "decoder.gate_layer.linear_layer", st["gate_layer"])
+    return out
+
+
 def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]],
-                            cfg: ExperimentConfig) -> Dict[str, torch.Tensor]:
+                            cfg: ExperimentConfig, lstm_halve_bias: bool = True
+                            ) -> Dict[str, torch.Tensor]:
     """masg_tpu FastSpeech2 params + batch_stats -> the port's FastSpeech2
     state_dict, derived buffers (position tables, bins, BatchNorm counters)
     included. With `batch_stats` None the BatchNorm statistics are left out
-    (a tree shaped like the params, such as an Adam moment)."""
-    if "jdit" in params:
-        raise NotImplementedError(
-            "JDIT weights: the JDIT teacher is not ported yet (ROADMAP.md, port "
-            "queue: MelGAN and JDIT)")
+    (a tree shaped like the params, such as an Adam moment). A JDIT
+    teacher's folded LSTM biases split in half (`_lstm_layer`); for an Adam
+    moment (`lstm_halve_bias=False`) each of torch's two biases carries the
+    folded bias's moment as it is, since each sees the folded gradient."""
     tr, ve = cfg.model.transformer, cfg.model.variance_embedding
     out: Dict[str, torch.Tensor] = {}
 
@@ -118,6 +145,9 @@ def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Optional[Map
         out[f"variance_adaptor.{key}.weight"] = _t(va[key]["embedding"])
 
     _lin(out, "mel_linear", params["mel_linear"])
+    if "jdit" in params:
+        out.update({f"jdit.{k}": v for k, v in
+                    jdit_state_dict_from_jax(params["jdit"], lstm_halve_bias).items()})
 
     pn = params["postnet"]
     n_convs = sum(1 for k in pn if k.startswith("conv_"))
@@ -152,9 +182,9 @@ def adam_state_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
     with its moments; position the schedule at `count` as well
     (`train.optim.set_schedule_count`).
     """
-    return _adam_state(count, fs2_state_dict_from_jax(mu, None, cfg),
-                       fs2_state_dict_from_jax(nu, None, cfg), model.named_parameters(),
-                       optimizer)
+    return _adam_state(count, fs2_state_dict_from_jax(mu, None, cfg, lstm_halve_bias=False),
+                       fs2_state_dict_from_jax(nu, None, cfg, lstm_halve_bias=False),
+                       model.named_parameters(), optimizer)
 
 
 def _adam_state(count, exp_avg: Mapping[str, torch.Tensor],
@@ -299,10 +329,32 @@ def vocoder_train_state_from_jax(state, target):
     return target
 
 
+def melgan_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """masg_tpu `MelGANGenerator` params (flat `<name>_kernel` (k, in, out)
+    and `<name>_bias`) -> the port's `MelGANGenerator` state_dict: conv
+    kernels to (out, in, k), the `ups_i` transposed-conv kernels to
+    (in, out, k); `res_i_j_conv1` becomes `res.i.j.conv1`."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, x in params.items():
+        name, leaf = key.rsplit("_", 1)
+        parts = name.split("_")
+        if parts[0] == "ups":
+            mod, perm = f"ups.{parts[1]}", (1, 2, 0)
+        elif parts[0] == "res":
+            mod, perm = f"res.{parts[1]}.{parts[2]}.{parts[3]}", (2, 1, 0)
+        else:
+            mod, perm = name, (2, 1, 0)
+        x = np.asarray(x)
+        out[f"{mod}.{'weight' if leaf == 'kernel' else 'bias'}"] = _t(
+            np.transpose(x, perm) if leaf == "kernel" else x)
+    return out
+
+
 def _lstm_layer(out: Dict[str, torch.Tensor], prefix: str, cell: Mapping[str, Any],
-                sfx: str) -> None:
-    """One flax `OptimizedLSTMCell` -> torch `nn.LSTM` layer `sfx` (a copy of
-    masg_tpu's `_lstm_cell_out`, compat/torch_fs2.py:244-262).
+                sfx: str, halve_bias: bool = True) -> None:
+    """One flax `OptimizedLSTMCell` -> torch `nn.LSTM` layer `sfx`, or an
+    `nn.LSTMCell` with `sfx` "" (a copy of masg_tpu's `_lstm_cell_out`,
+    compat/torch_fs2.py:244-262).
 
     The gate kernels i{i,f,g,o} / h{i,f,g,o} (in, hidden) stack into
     weight_ih / weight_hh (4 hidden, in) in torch's (i, f, g, o) row order.
@@ -311,11 +363,14 @@ def _lstm_layer(out: Dict[str, torch.Tensor], prefix: str, cell: Mapping[str, An
     masg_tpu's two-bias compat (train/optim.py:168-222: the folded bias's
     doubled Adam update, half weight decay, double-counted clip norm) is
     exact, and both halves then stay equal for the whole trajectory.
+    `halve_bias=False` (an Adam moment) copies the folded value to both.
     """
     gates = ("i", "f", "g", "o")
     wi = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates], axis=0)
     wh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates], axis=0)
-    b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates], axis=0) / 2.0
+    b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates], axis=0)
+    if halve_bias:
+        b = b / 2.0
     out[f"{prefix}.weight_ih{sfx}"] = _t(wi)
     out[f"{prefix}.weight_hh{sfx}"] = _t(wh)
     out[f"{prefix}.bias_ih{sfx}"] = _t(b)

@@ -30,7 +30,6 @@ plain Python, copied from masg_tpu/infer/serving.py.
 from __future__ import annotations
 
 import contextlib
-import copy
 import threading
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -95,8 +94,7 @@ class ServingEngine:
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         if vocoder is not None and (vocoder.dtype != dtype or vocoder.device != self.device):
-            vocoder = Vocoder(copy.deepcopy(vocoder.generator).to(self.device, dtype),
-                              vocoder.hop_length, vocoder.max_wav_value)
+            vocoder = vocoder.to(self.device, dtype)
         self.vocoder = vocoder
 
         self.mel_caps: Dict[int, int] = {

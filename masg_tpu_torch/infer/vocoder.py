@@ -3,14 +3,16 @@ masg_tpu/infer/vocoder.py).
 
 Reference: utils/model.py:42-92. Honours the HiFi-GAN config.json schema,
 the upstream torch checkpoint format (`{'generator': state_dict}`, weight
-norm folded at load) and masg_tpu's flax `.msgpack` generator files. Streams
-the vocoder in receptive-field-exact windows (`vocode_streaming`). MelGAN is
-queued in ROADMAP.md.
+norm folded at load) and masg_tpu's flax `.msgpack` generator files, and
+builds descript's MelGAN (`models/melgan.py`) from seeded random weights or a
+local descript checkpoint, fed log10 mels (`Vocoder.mel_scale`). Streams the
+vocoder in receptive-field-exact windows (`vocode_streaming`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 from typing import Iterator, List, Optional, Sequence
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models import melgan
 from ..models.hifigan import HiFiGANGenerator, fold_weight_norm, init_random_weights
 
 DEFAULT_HIFIGAN_CONFIG = {
@@ -33,13 +36,22 @@ DEFAULT_HIFIGAN_CONFIG = {
 
 
 class Vocoder:
-    """A generator in eval mode plus the wav scaling the CLIs apply."""
+    """A generator (HiFi-GAN or MelGAN) in eval mode plus the wav scaling the
+    CLIs apply. `mel_scale` multiplies the natural-log mel on the way in:
+    1/ln 10 for MelGAN, whose checkpoints were trained on log10 mels
+    (reference utils/model.py:76-78)."""
 
-    def __init__(self, generator: HiFiGANGenerator, hop_length: int = 256,
-                 max_wav_value: float = 32768.0):
+    def __init__(self, generator: torch.nn.Module, hop_length: int = 256,
+                 max_wav_value: float = 32768.0, mel_scale: float = 1.0):
         self.generator = generator.eval()
         self.hop_length = hop_length
         self.max_wav_value = max_wav_value
+        self.mel_scale = mel_scale
+
+    def to(self, device: torch.device, dtype: torch.dtype) -> "Vocoder":
+        """A copy of this vocoder on `device` in `dtype`."""
+        return Vocoder(copy.deepcopy(self.generator).to(device, dtype), self.hop_length,
+                       self.max_wav_value, self.mel_scale)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -56,7 +68,10 @@ class Vocoder:
     @torch.inference_mode()
     def __call__(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, n_mels) channel-last log-mel -> (B, T*hop) float wav."""
-        return self.generator(torch.as_tensor(mel).to(self.device, self.dtype))
+        mel = torch.as_tensor(mel)
+        if self.mel_scale != 1.0:  # in the caller's dtype, as masg_tpu scales
+            mel = mel * self.mel_scale
+        return self.generator(mel.to(self.device, self.dtype))
 
 
 def hifigan_config(config_dir: Optional[str] = None) -> dict:
@@ -88,17 +103,30 @@ def get_vocoder(model_config, config_dir: Optional[str] = None,
                 seed: int = 0) -> Vocoder:
     """Build the vocoder named by model_config.vocoder
     (reference get_vocoder, utils/model.py:42-71) on `device` (the card when
-    None). Without a checkpoint the generator gets seeded random weights."""
+    None). Without a checkpoint the generator gets seeded random weights.
+
+    HiFi-GAN: see `load_generator_checkpoint`. MelGAN: descript's generator
+    at its defaults; a checkpoint is a descript torch file whose state_dict
+    sits under `model_g`, `generator`, `netG` or `state_dict` (or at the
+    top); `fused_mrf` does not apply (MelGAN has no MRF)."""
     dev = resolve_device(device)
     name = model_config.vocoder.model
-    if name == "MelGAN":
-        raise NotImplementedError(
-            "MelGAN is not ported yet (ROADMAP.md, port queue: MelGAN and JDIT)")
-    if name != "HiFi-GAN":
+    if name not in ("HiFi-GAN", "MelGAN"):
         raise ValueError(f"unknown vocoder {name!r}")
     if checkpoint and not os.path.exists(checkpoint):
         # a requested-but-missing checkpoint must not silently random-init
         raise FileNotFoundError(f"vocoder checkpoint not found: {checkpoint}")
+    if name == "MelGAN":
+        gen = melgan.MelGANGenerator()
+        if checkpoint:
+            ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
+            for key in ("model_g", "generator", "netG", "state_dict"):
+                if isinstance(ckpt, dict) and key in ckpt:
+                    ckpt = ckpt[key]
+            gen.load_state_dict(melgan.convert_descript_state_dict(ckpt), strict=True)
+        else:
+            melgan.init_random_weights(gen, torch.Generator().manual_seed(seed))
+        return Vocoder(gen.to(dev, dtype), mel_scale=1.0 / float(np.log(10.0)))
 
     cfg = hifigan_config(config_dir)
     gen = build_generator(cfg, fused_mrf)

@@ -5,9 +5,14 @@ Encoder -> (+ speaker embedding) -> variance adaptor -> decoder -> mel
 linear -> PostNet residual, plus the TacoSpawn SpeakerMetaEncoder GMM prior
 over speaker embeddings. Reference: model/fastspeech2.py:15-341.
 
+With `use_jdit` the JDIT teacher (`models/jdit.py`) rides on top: given the
+ground-truth mels it reads the raw encoder output, before the speaker vector
+is added, and returns a parallel mel and alignments (reference
+fastspeech2.py:77-78).
+
 Parameter names are the reference's torch names, so a reference-format
 checkpoint (`{"model": state_dict}`, as `python -m masg_tpu.cli.convert_checkpoint
---to_torch` writes it) loads with `strict=True`. Inference only.
+--to_torch` writes it) loads with `strict=True`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from ..core.config import ExperimentConfig, Stats
 from ..ops.gmm import DiagGMM
 from ..ops.masks import pad_mask_from_lengths
 from .encoder import Decoder, Encoder
+from .jdit import JDIT
 from .postnet import PostNet
 from .variance_adaptor import VarianceAdaptor, make_bins
 
@@ -62,6 +68,8 @@ class FS2Output(NamedTuple):
     mel_len: torch.Tensor  # (B,)
     speaker_gmm: Optional[DiagGMM] = None  # prior GMM per batch row
     speaker_emb: Optional[torch.Tensor] = None  # (B, H) table embeddings
+    mel_jdit: Optional[torch.Tensor] = None  # (B, T, n_mels) JDIT teacher mel
+    alignments: Optional[torch.Tensor] = None  # (B, T, L) JDIT soft alignments
 
 
 class FastSpeech2(nn.Module):
@@ -77,7 +85,11 @@ class FastSpeech2(nn.Module):
                  vp_kernel_size: int = 3, vp_dropout: float = 0.5,
                  pitch_feature_level: str = "phoneme_level",
                  energy_feature_level: str = "phoneme_level", gmm_mixtures: int = 3,
-                 n_mel_channels: int = 80, use_flash: bool = True):
+                 n_mel_channels: int = 80, use_flash: bool = True,
+                 use_jdit: bool = False, jdit_attention_rnn_dim: int = 1024,
+                 jdit_decoder_rnn_dim: int = 1024, jdit_prenet_dim: int = 256,
+                 jdit_attention_dim: int = 128, jdit_location_filters: int = 32,
+                 jdit_location_kernel: int = 31):
         super().__init__()
         self.multi_speaker = multi_speaker
         self.encoder = Encoder(encoder_hidden, encoder_layer, encoder_head,
@@ -90,6 +102,10 @@ class FastSpeech2(nn.Module):
                                conv_filter_size, conv_kernel_size, decoder_dropout,
                                max_seq_len, use_flash)
         self.mel_linear = nn.Linear(decoder_hidden, n_mel_channels)
+        self.jdit = (JDIT(n_mel_channels, encoder_hidden, jdit_attention_rnn_dim,
+                          jdit_decoder_rnn_dim, jdit_prenet_dim, jdit_attention_dim,
+                          jdit_location_filters, jdit_location_kernel)
+                     if use_jdit else None)
         self.postnet = PostNet(n_mel_channels)
         if multi_speaker:
             self.speaker_emb = nn.Embedding(n_speakers, encoder_hidden)
@@ -99,10 +115,6 @@ class FastSpeech2(nn.Module):
     def from_config(cfg: ExperimentConfig, use_flash: bool = True) -> "FastSpeech2":
         """The model `cfg` describes, with fresh (torch default) weights."""
         m, p = cfg.model, cfg.preprocess
-        if m.jdit.use_jdit:
-            raise NotImplementedError(
-                "use_jdit: the JDIT teacher is not ported yet (ROADMAP.md, port "
-                "queue: MelGAN and JDIT)")
         if m.multi_speaker and cfg.speakers is None:
             raise FileNotFoundError(
                 f"multi_speaker model but no speakers.json in "
@@ -138,13 +150,25 @@ class FastSpeech2(nn.Module):
             gmm_mixtures=m.speaker_generation.GMM_mixtures,
             n_mel_channels=p.mel.n_mel_channels,
             use_flash=use_flash,
+            use_jdit=m.jdit.use_jdit,
+            jdit_attention_rnn_dim=m.jdit.attention_rnn_dim,
+            jdit_decoder_rnn_dim=m.jdit.decoder_rnn_dim,
+            jdit_prenet_dim=m.jdit.prenet_hidden,
+            jdit_attention_dim=m.jdit.attention_dim,
+            jdit_location_filters=m.jdit.location_filters,
+            jdit_location_kernel=m.jdit.location_kernel,
         )
 
     def _synthesis_core(self, texts, src_lens, max_mel_len, speaker_vec,
                         mel_pad_mask_in, p_targets, e_targets, d_targets,
-                        p_control, e_control, d_control, accents) -> FS2Output:
+                        p_control, e_control, d_control, accents, mels=None,
+                        jdit_generator=None) -> FS2Output:
         src_pad_mask = pad_mask_from_lengths(src_lens, texts.shape[1])
         x = self.encoder(texts, src_pad_mask, accents, src_lens)
+        mel_jdit = alignments = None
+        if self.jdit is not None and mels is not None:
+            # the teacher reads the raw encoder output (fastspeech2.py:77-78)
+            mel_jdit, _gate, alignments = self.jdit(x, mels, src_pad_mask, jdit_generator)
         if speaker_vec is not None:
             x = x + speaker_vec[:, None, :].to(x.dtype)
         va = self.variance_adaptor(x, src_pad_mask, max_mel_len, mel_pad_mask_in,
@@ -165,6 +189,8 @@ class FastSpeech2(nn.Module):
             mel_pad_mask=mel_pad_mask,
             src_len=src_lens,
             mel_len=va.mel_len.clamp(max=mel_pad_mask.shape[1]),
+            mel_jdit=mel_jdit,
+            alignments=alignments,
         )
 
     def forward(self, speakers: torch.Tensor, texts: torch.Tensor,
@@ -175,7 +201,11 @@ class FastSpeech2(nn.Module):
                 d_targets: Optional[torch.Tensor] = None,
                 p_control: float = 1.0, e_control: float = 1.0, d_control: float = 1.0,
                 accents: Optional[torch.Tensor] = None,
-                speaker_meta: Optional[torch.Tensor] = None) -> FS2Output:
+                speaker_meta: Optional[torch.Tensor] = None,
+                mels: Optional[torch.Tensor] = None,
+                jdit_generator: Optional[torch.Generator] = None) -> FS2Output:
+        """`mels` (B, T, n_mels), the ground truth, runs the JDIT teacher of a
+        `use_jdit` model, its dropout masks drawn from `jdit_generator`."""
         speaker_vec = speaker_gmm = None
         if self.multi_speaker:
             speaker_vec = self.speaker_emb(speakers)
@@ -185,7 +215,8 @@ class FastSpeech2(nn.Module):
                            if mel_lens is not None else None)
         out = self._synthesis_core(texts, src_lens, max_mel_len, speaker_vec,
                                    mel_pad_mask_in, p_targets, e_targets, d_targets,
-                                   p_control, e_control, d_control, accents)
+                                   p_control, e_control, d_control, accents, mels,
+                                   jdit_generator)
         return out._replace(speaker_gmm=speaker_gmm, speaker_emb=speaker_vec)
 
     def synthesize_from_speaker_emb(self, texts: torch.Tensor, src_lens: torch.Tensor,

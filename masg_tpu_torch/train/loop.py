@@ -14,7 +14,9 @@ flight, save, and return.
 `build_experiment` composes the three FastSpeech2 trainers of masg_tpu
 (train/loop.py:575-652): plain, `--use_clf` (a frozen GE2E discriminator,
 `load_ge2e_checkpoint`) and ganlike (FastSpeech2 and the discriminator under
-one optimizer, `models/ganlike.py`), each with `param_storage`.
+one optimizer, `models/ganlike.py`), each with `param_storage`, and each with
+the JDIT teacher when the config sets `jdit.use_jdit` (its loss joins the
+plain and `--use_clf` steps, as in masg_tpu; ganlike's step leaves it out).
 
 masg_tpu's `_pack_batch`/`_unpack_fn` (one host->device transfer per batch,
 a workaround for a remoted TPU) and its device mesh have no counterpart here.
@@ -41,8 +43,7 @@ from ..models.speaker_encoder import SpeechEmbedder
 from ..utils.logging import Logger, log_losses
 from .optim import noam_schedule
 from .state import TrainState, create_train_state
-from .step import (batch_to_device, make_eval_step, make_ganlike_train_step, make_train_step,
-                   unported)
+from .step import batch_to_device, make_eval_step, make_ganlike_train_step, make_train_step
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -361,8 +362,6 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
     (`clf_featurization`: see `make_train_step`). `checkpoint`, another run's
     checkpoint dir, warm-starts the FastSpeech2 weights only from its latest
     step."""
-    if cfg.model.jdit.use_jdit:
-        raise unported("use_jdit (the JDIT teacher)", 11)
     corpora = corpora or list(cfg.corpora)
     if not corpora:
         raise ValueError("no corpora configured (preprocess_<CORPUS>.yaml in the config dir)")

@@ -9,7 +9,9 @@ dropout, batch-statistics BatchNorm), loss, one backward, then, every
 update with the Noam schedule (on the f32 master under bf16 storage).
 
 Three variants:
-- plain (`make_train_step`): total = FS2 losses - speaker prior;
+- plain (`make_train_step`): total = FS2 losses - speaker prior; with
+  `use_jdit` the JDIT teacher's unmasked mel MSE joins the total
+  (masg_tpu step.py:134-136);
 - `--use_clf` (`make_train_step(use_clf=True, discriminator=...)`): a second
   train-mode forward on a speaker-shuffled copy of the batch, its pre-PostNet
   mel chunked into 150-frame windows and scored by a FROZEN GE2E
@@ -18,7 +20,10 @@ Three variants:
 - ganlike (`make_ganlike_train_step`): the same, with the discriminator
   trained jointly under the one optimizer against jittered labels.
 
-JDIT (ROADMAP.md queue 1 item 11) is not ported yet.
+The JDIT teacher's dropout masks come from a `torch.Generator`: in a train
+step one seeded from the step's seed, in the eval step one seeded from 0 on
+every call (masg_tpu passes `PRNGKey(0)`, step.py:64-66), since its prenet
+dropout stays on in eval.
 """
 
 from __future__ import annotations
@@ -75,14 +80,23 @@ def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dty
 
 def _forward(model: FastSpeech2, batch: Dict[str, torch.Tensor], train: bool,
              speakers: Optional[torch.Tensor] = None,
-             speaker_meta: Optional[torch.Tensor] = None) -> FS2Output:
-    """Teacher-forced forward on a device batch (optionally for other speakers)."""
+             speaker_meta: Optional[torch.Tensor] = None,
+             teacher_gen: Optional[torch.Generator] = None) -> FS2Output:
+    """Teacher-forced forward on a device batch (optionally for other
+    speakers); with `teacher_gen` the JDIT teacher runs too."""
     model.train(train)
     return model(batch["speakers"] if speakers is None else speakers, batch["texts"],
                  batch["src_lens"], batch["mels"].shape[1], mel_lens=batch["mel_lens"],
                  p_targets=batch["pitches"], e_targets=batch["energies"],
                  d_targets=batch["durations"], accents=batch.get("accents"),
-                 speaker_meta=batch["speaker_meta"] if speaker_meta is None else speaker_meta)
+                 speaker_meta=batch["speaker_meta"] if speaker_meta is None else speaker_meta,
+                 mels=batch["mels"] if teacher_gen is not None else None,
+                 jdit_generator=teacher_gen)
+
+
+def jdit_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The generator of the JDIT teacher's dropout masks on `device`."""
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
@@ -91,11 +105,15 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
 
 
 def _losses(model, batch, train, pitch_feature_level, energy_feature_level,
-            use_speaker_prior) -> Tuple[torch.Tensor, FS2Losses, torch.Tensor, FS2Output]:
-    out = _forward(model, batch, train)
+            use_speaker_prior, teacher_gen: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, FS2Losses, torch.Tensor, FS2Output]:
+    out = _forward(model, batch, train, teacher_gen=teacher_gen)
     losses = fastspeech2_loss(out, batch["mels"], batch["pitches"], batch["energies"],
                               batch["durations"], pitch_feature_level, energy_feature_level)
     total = losses.total
+    if out.mel_jdit is not None:
+        # plain (unmasked) MSE, as in the reference (train.py:150-154)
+        total = total + torch.mean((out.mel_jdit - batch["mels"].to(out.mel_jdit.dtype)) ** 2)
     eloss = torch.zeros((), dtype=total.dtype, device=total.device)
     if use_speaker_prior and out.speaker_gmm is not None:
         eloss = speaker_prior_log_prob(out.speaker_emb, out.speaker_gmm)
@@ -235,6 +253,10 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
     `autocast_dtype` (bf16) runs the FastSpeech2 forwards and loss under
     `torch.autocast`.
 
+    `use_jdit` runs the JDIT teacher in the first forward and adds its mel
+    MSE; its masks come from a generator seeded from `seed` (from a draw of
+    torch's global generator when `seed` is None).
+
     `use_clf` needs `discriminator`, a GE2E `SpeechEmbedder` that stays frozen
     (no gradient to its parameters, outside the optimizer and the clip); the
     language loss joins the total as dloss * schedule(step) * lambd / number
@@ -244,8 +266,6 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
     (the reference's); "ge2e" first maps them into the GE2E encoder's fmin-55
     mel basis (`ge2e_basis`; masg_tpu's opt-in, beyond parity).
     """
-    if use_jdit:
-        raise unported("use_jdit (the JDIT teacher)", 11)
     assert clf_featurization in ("model", "ge2e"), clf_featurization
     if use_clf:
         assert discriminator is not None, "use_clf needs a discriminator"
@@ -254,11 +274,14 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
     basis = (torch.from_numpy(ge2e_basis()).to(device)
              if use_clf and clf_featurization == "ge2e" else None)
 
-    def loss_fn(model: FastSpeech2, batch: Dict[str, torch.Tensor], step: int = 0):
-        """(objective, losses, eloss, dloss, output) of the train-mode forward(s)."""
+    def loss_fn(model: FastSpeech2, batch: Dict[str, torch.Tensor], step: int = 0,
+                seed: int = 0):
+        """(objective, losses, eloss, dloss, output) of the train-mode forward(s);
+        `seed` seeds the JDIT teacher's masks."""
+        gen = jdit_generator(device, seed) if use_jdit else None
         with _autocast(device, autocast_dtype):
             total, losses, eloss, out = _losses(model, batch, True, pitch_feature_level,
-                                                energy_feature_level, use_speaker_prior)
+                                                energy_feature_level, use_speaker_prior, gen)
             dloss = torch.zeros((), dtype=total.dtype, device=total.device)
             if use_clf:
                 dloss, n = _language_loss(model, discriminator, batch, basis,
@@ -270,7 +293,9 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
                    seed: Optional[int] = None) -> Tuple[TrainState, StepMetrics]:
         if seed is not None:
             torch.manual_seed(seed)
-        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step)
+        elif use_jdit:  # the teacher's generator needs a seed of its own
+            seed = int(torch.empty((), dtype=torch.int64).random_())
+        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step, seed or 0)
         grad_norm = _update(state, total)
         return state, _metrics(losses, eloss, dloss, grad_norm)
 
@@ -327,14 +352,17 @@ def make_eval_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_level
                                  Tuple[FS2Losses, torch.Tensor, FS2Output]]:
     """Validation step: losses on a batch with dropout off and BatchNorm on
     its running statistics, no update (reference evaluate.py:18-75), on the
-    state's FastSpeech2 (`TrainState.fs2`: ganlike's FastSpeech2 half)."""
+    state's FastSpeech2 (`TrainState.fs2`: ganlike's FastSpeech2 half). A
+    JDIT teacher runs too, its always-on prenet dropout drawn from a
+    generator seeded from 0 on every call, so eval repeats."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        gen = jdit_generator(device, 0) if state.fs2.jdit is not None else None
         with _autocast(device, autocast_dtype):
             _, losses, eloss, out = _losses(state.fs2, batch, False, pitch_feature_level,
-                                            energy_feature_level, use_speaker_prior)
+                                            energy_feature_level, use_speaker_prior, gen)
         return losses, eloss, out
 
     return eval_step

@@ -1,7 +1,7 @@
 """The port's trainer entry points on the CPU: its Dataset / GroupedLoader
 copies against masg_tpu's, `cli.train --device cpu` with save, deterministic
 resume (dropout on) and `cli.evaluate`, checkpoint rotation, and the
-variants: `--use_clf` and ganlike build, JDIT is not ported yet."""
+variants: `--use_clf`, ganlike and JDIT build."""
 
 import json
 import os
@@ -133,8 +133,9 @@ def test_checkpoint_keep_last_rotates(corpus):
 
 
 def test_unported_variants_raise(corpus):
-    """`--use_clf` and ganlike are ported (queue 1 item 8) and now build;
-    JDIT (item 11) still raises."""
+    """`--use_clf` and ganlike (queue 1 item 8) and JDIT (item 11) are ported
+    and build; JDIT with each of them and with `--param_storage bf16` builds
+    as masg_tpu's does."""
     cfg_dir = _config(corpus, "unported")
     from masg_tpu_torch.models.ganlike import GANLike
     from masg_tpu_torch.train.loop import build_experiment
@@ -150,8 +151,11 @@ def test_unported_variants_raise(corpus):
     assert gan.state.clip_mask() == [n.startswith("model.") for n, p in
                                      gan.state.model.named_parameters() if p.requires_grad]
     cfg.model.jdit.use_jdit = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-        build_experiment(cfg, device="cpu")
+    for kw in ({}, {"use_clf": True}, {"ganlike": True}, {"param_storage": "bf16"}):
+        trainer = build_experiment(cfg, device="cpu", **kw)
+        assert trainer.model.jdit is not None, kw
+        teacher = [p for n, p in trainer.state.model.named_parameters() if ".jdit." in f".{n}"]
+        assert teacher and all(p.requires_grad for p in teacher), kw
 
 
 def test_train_cli_defaults_to_the_card(corpus):
