@@ -2865,6 +2865,386 @@ def melgan_path(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [dp]: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # two ranks sharing the one card over gloo (CUDA tensors)
+DP_STEP_METRICS = ("total", "mel", "postnet_mel", "pitch", "energy", "duration",
+                   "speaker_prior", "dloss")
+
+
+def _no_dropout(model):
+    import torch
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def _dp_fs2(variant, acc, disc):
+    """A fresh flagship train state (seed 0, dropout off, kernel path) and its step."""
+    import copy
+
+    from masg_tpu_torch.train.step import make_train_step
+
+    cfg = flagship_config()
+    cfg.train.optimizer.grad_acc_step = acc
+    if variant == "plain":
+        st = train_state(cfg, True)
+        _no_dropout(st.model)
+        return st, make_train_step(st.model)
+    return adversarial_state(cfg, "use_clf=model" if variant == "use_clf" else "ganlike",
+                             True, copy.deepcopy(disc))
+
+
+def _dp_ms(fn, n=3):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _dp_train(rank, world, variant, acc):
+    """One train-step variant at the flagship width, B = 16 split over the
+    ranks, against rank 0 alone on the global batch (the others wait at a
+    barrier): the reduced gradients of one backward, the StepMetrics of 3
+    updates (4 micro-steps at grad_acc_step 2), K1-K3 launches per rank per
+    step, ms per step (mean of 2, after those) on 1 rank and on the ranks
+    sharing the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+    from masg_tpu_torch.parallel.mesh import DataMesh
+    from masg_tpu_torch.train.step import batch_to_device
+
+    batch = adversarial_batch() if variant != "plain" else example_inputs(B=B, L=L, T=T_MEL)
+    torch.manual_seed(1)
+    disc = SpeechEmbedder() if variant != "plain" else None
+    mesh = DataMesh(world, rank).for_batch(B)
+    assert mesh.sharded
+    whole = batch_to_device(batch, DEVICE, torch.float32)
+    mine = batch_to_device(mesh.shard_batch(batch), DEVICE, torch.float32)
+    n_steps = 4 if acc == 2 else 3
+    out = {}
+
+    # the gradients of one backward: rank 0 alone on the whole batch, then
+    # every rank on its rows, summed
+    ref = None
+    if rank == 0:
+        st, step = _dp_fs2(variant, acc, disc)
+        step.loss_fn(st.model, whole, 0)[0].backward()
+        ref = [p.grad.clone() for p in st.params()]
+        del st, step
+    st, step = _dp_fs2(variant, acc, disc)
+    step.loss_fn(st.model, mine, 0, mesh=mesh)[0].backward()
+    mesh.reduce_grads(st.params())
+    if rank == 0:
+        worst, tensors = 0.0, 0
+        for p, r in zip(st.params(), ref):
+            g = p.grad if p.grad is not None else torch.zeros_like(r)
+            worst = max(worst, float(((g - r).abs() - 1e-4 * r.abs()).max()))
+            tensors += 1
+        out["grad_excess"] = worst  # max(|g - r| - rtol |r|): within atol 5e-6
+        out["grad_tensors"] = tensors
+    del st, step, ref
+
+    # the trajectories, then the times of 3 more steps
+    if rank == 0:
+        st, step = _dp_fs2(variant, acc, disc)
+        ref_traj = []
+        for i in range(n_steps):
+            st, m = step(st, whole, i)
+            ref_traj.append([float(getattr(m, k)) for k in DP_STEP_METRICS + ("grad_norm",)])
+        out["ms_1rank"] = _dp_ms(lambda: step(st, whole, 9), n=2)
+        out["ref"] = ref_traj
+        del st, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+    st, step = _dp_fs2(variant, acc, disc)
+    reset_counts()
+    traj = []
+    for i in range(n_steps):
+        st, m = step(st, mine, i, mesh)
+        traj.append([float(getattr(m, k)) for k in DP_STEP_METRICS + ("grad_norm",)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out["launches_per_step"] = {k: v / n_steps for k, v in counts.items()}
+    out["traj"] = traj
+    dist.barrier()
+    out["ms_2ranks"] = _dp_ms(lambda: step(st, mine, 9, mesh), n=2)
+    out["param_checksum"] = float(sum(p.detach().double().sum() for p in st.params()))
+    del st, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref_traj = np.asarray(out["ref"])
+        got = np.asarray(traj)
+        loss_rel = np.abs(got[:, :-1] - ref_traj[:, :-1]) / np.maximum(np.abs(ref_traj[:, :-1]),
+                                                                       1e-30)
+        out["loss_rel"] = float(loss_rel[ref_traj[:, :-1] != 0].max())
+        out["grad_norm_rel"] = float((np.abs(got[:, -1] - ref_traj[:, -1]) /
+                                      np.abs(ref_traj[:, -1])).max())
+    return out
+
+
+def _dp_ge2e(rank, world):
+    """The GE2E trainer at masg_tpu's width, N x M = 32 x 10 chunks of 150
+    frames split over the ranks, against rank 0 alone: (ge2e, da) losses of
+    3 steps, dropout off; ms per step over steps 2-3 (the first builds
+    cuDNN's LSTM plans)."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+    from masg_tpu_torch.parallel.mesh import DataMesh
+    from masg_tpu_torch.train.ge2e import make_ge2e_train_step
+
+    rng = np.random.default_rng(13)
+    batches = [(rng.normal(size=(GE2E_N * GE2E_M, 150, 80)).astype(np.float32),
+                np.repeat(np.arange(GE2E_N) % 2, GE2E_M).astype(np.float32)) for _ in range(3)]
+    torch.manual_seed(1)
+    base = _no_dropout(SpeechEmbedder())
+
+    def run(mesh):
+        init_state, step = make_ge2e_train_step(copy.deepcopy(base).to(DEVICE), GE2E_N, GE2E_M,
+                                                mesh=mesh)
+        st = init_state()
+        losses = []
+        for i, (mels, langs) in enumerate(batches):
+            if i == 1:
+                t0 = time.perf_counter()
+            st, loss, da = step(st, mels, langs, i == 0)
+            losses.append((float(loss), float(da)))  # the host fetch waits for the card
+        return losses, (time.perf_counter() - t0) * 1e3 / 2
+
+    out = {}
+    if rank == 0:
+        out["ref"], out["ms_1rank"] = run(None)
+    dist.barrier()
+    out["losses"], out["ms_2ranks"] = run(DataMesh(world, rank))
+    if rank == 0:
+        out["rel"] = max(abs(a - b) / abs(b) for sa, sb in zip(out["losses"], out["ref"])
+                         for a, b in zip(sa, sb))
+    return out
+
+
+def _dp_vocoder(rank, world):
+    """The HiFi-GAN V1 GAN step, B = 16 x 8192 samples split over the ranks,
+    against rank 0 alone on the whole batch: VocoderMetrics of 2 steps, then
+    the ms of a third (the first steps run cuDNN's algorithm search)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from masg_tpu_torch.cli.train_vocoder import training_config
+    from masg_tpu_torch.parallel.mesh import DataMesh
+    from masg_tpu_torch.train.vocoder import init_vocoder_train_state, make_vocoder_train_step
+
+    cfg = training_config()
+    bsz, seg = cfg["batch_size"], cfg["segment_size"]
+    y = torch.from_numpy(sine_batch(np.random.default_rng(0), bsz, seg)).to(DEVICE)
+    mesh = DataMesh(world, rank).for_batch(bsz)
+
+    def run(m, rows):
+        state = init_vocoder_train_state(cfg, steps_per_epoch=1000, seed=0, device=DEVICE)
+        step = make_vocoder_train_step(cfg, mesh=m)
+        metrics = []
+        for _ in range(2):
+            state, vm = step(state, y[rows])
+            metrics.append([float(x) for x in vm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, y[rows])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del state
+        torch.cuda.empty_cache()
+        return metrics, ms
+
+    out = {}
+    if rank == 0:
+        out["ref"], out["ms_1rank"] = run(None, slice(0, bsz))
+    dist.barrier()
+    out["metrics"], out["ms_2ranks"] = run(mesh, mesh.rows(bsz))
+    if rank == 0:
+        out["rel"] = max(abs(a - b) / abs(b) for sa, sb in zip(out["metrics"], out["ref"])
+                         for a, b in zip(sa, sb))
+    return out
+
+
+def dp_worker(rank, world):
+    """A rank of [dp]'s pair of worker processes (gloo, CUDA tensors on the
+    one card): the train variants, GE2E and the vocoder GAN in turn.
+    Returns host data only."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = {"train": {}}
+    for variant, acc in (("plain", 1), ("plain", 2), ("use_clf", 1), ("ganlike", 1)):
+        out["train"][f"{variant}/{acc}"] = _dp_train(rank, world, variant, acc)
+    out["ge2e"] = _dp_ge2e(rank, world)
+    out["vocoder"] = _dp_vocoder(rank, world)
+    return out
+
+
+def dp_serve(smi):
+    """`ServingEngine(devices=[cuda:0, cuda:0])` (two replicas on the card)
+    against the single engine on the flagship f32 weights: one B = 8
+    dispatch at bucket 128 (K1 20, K4 4 launches: 10 and 2 a replica), a
+    B = 1 request on the whole-batch path (K1 10, K4 2)."""
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.compat.from_jax import with_duration_bias
+    from masg_tpu_torch.infer.serving import ServingEngine
+    from masg_tpu_torch.infer.synthesis import load_model
+    from masg_tpu_torch.infer.vocoder import get_vocoder
+
+    cfg = flagship_config()
+    sd = with_duration_bias(load_model(cfg, device=DEVICE, seed=0).state_dict(), math.log(5.0))
+    vocoder = get_vocoder(cfg.model, device=DEVICE, seed=1)
+
+    def engine(**kw):
+        return ServingEngine(cfg, state_dict=sd, vocoder=vocoder, text_buckets=SERVE_BUCKETS,
+                             frames_per_phone=SERVE_FPP, **kw)
+
+    single, dp = engine(device=DEVICE), engine(devices=[DEVICE, DEVICE])
+    rng = np.random.default_rng(21)
+    reqs = [{"ids": list(rng.integers(5, 80, size=int(rng.integers(100, 129)))),
+             "speaker_id": int(rng.integers(0, 16))} for _ in range(8)]
+    reset_counts()
+    want = single.synthesize_many(reqs, batch_buckets=(8,))
+    torch.cuda.synchronize()
+    per_replica = read_counts()  # K1 10 and K4 2 at the flagship ([serve])
+    dp.synthesize_many(reqs, batch_buckets=(8,))  # warm-up of the split shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = dp.synthesize_many(reqs, batch_buckets=(8,))
+    torch.cuda.synchronize()
+    ms8 = (time.perf_counter() - t0) * 1e3
+    counts8 = read_counts()
+    assert all(g["bucket"] == 128 for g in got), [g["bucket"] for g in got]
+    assert [g["mel_len"] for g in got] == [w["mel_len"] for w in want]
+    assert all(g["mel_len"] > 0 for g in got)
+    lsb8 = max(_max_lsb(g["wav"], w["wav"]) for g, w in zip(got, want))
+    t = cfg.model.transformer
+    assert per_replica["K1"] == t.encoder_layer + t.decoder_layer, per_replica
+    assert counts8 == {k: 2 * v for k, v in per_replica.items()}, (counts8, per_replica)
+    assert lsb8 <= 2, lsb8
+    reset_counts()
+    r1 = dp.synthesize(reqs[0]["ids"], speaker_id=reqs[0]["speaker_id"])
+    torch.cuda.synchronize()
+    counts1 = read_counts()
+    w1 = single.synthesize(reqs[0]["ids"], speaker_id=reqs[0]["speaker_id"])
+    assert counts1 == per_replica, (counts1, per_replica)
+    assert r1["mel_len"] == w1["mel_len"] and _max_lsb(r1["wav"], w1["wav"]) <= 2
+    print(f"[dp] serve: ServingEngine(devices=[cuda:0, cuda:0]) vs one engine, B=8 at "
+          f"bucket 128: mel_len identical {[g['mel_len'] for g in got]}, wav max "
+          f"{lsb8} LSB (tol 2), launches {counts8} (twice one engine's {per_replica}), "
+          f"{ms8:.1f} ms; B=1 on the whole-batch path: launches {counts1}, "
+          f"{_max_lsb(r1['wav'], w1['wav'])} LSB; on {smi}")
+    return {"K1": counts8["K1"], "K4": counts8["K4"]}
+
+
+def dp_nccl(smi, pre_dir, root):
+    """`cli.train --n_devices 1 --multihost` under torchrun's environment at
+    world size 1: the NCCL process group, 2 steps on [trainer]'s corpus."""
+    import socket
+
+    from masg_tpu_torch.data.synthetic import write_config_dir
+
+    cfg_dir = write_config_dir(os.path.join(root, "dp_cfg"), pre_dir,
+                               os.path.join(root, "dp_out"), step={"save_step": 2})
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0", MASG_INIT_TIMEOUT="120")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "masg_tpu_torch.cli.train", "-c", cfg_dir,
+                        "--n_devices", "1", "--multihost", "--max_steps", "2"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    mesh_line = next(x for x in r.stdout.splitlines() if x.startswith("mesh:"))
+    assert "backend nccl" in mesh_line, mesh_line
+    losses = _total_losses(cfg_dir)
+    assert [s for s, _ in losses] == [1, 2] and all(math.isfinite(v) for _, v in losses)
+    assert os.path.exists(os.path.join(root, "dp_out", "ckpt", "2.pth.tar"))
+    print(f"[dp] NCCL: cli.train --n_devices 1 --multihost (torchrun env, world size 1): "
+          f"'{mesh_line}', total losses {[round(v, 4) for _, v in losses]}, step-2 "
+          f"checkpoint written, {wall:.1f} s for the process; on {smi}")
+
+
+def dp_path(smi, pre_dir, root):
+    """Phase [dp]: one pair of worker processes (`parallel.distributed.spawn`,
+    gloo with CUDA tensors, both ranks on cuda:0) runs the train variants,
+    GE2E and the vocoder GAN 2 ranks against 1; then the 2-replica serving
+    engine here, and the NCCL group at world size 1 in a subprocess.
+    The ranks share one card, so 2 ranks are not expected to be faster than
+    1: the times show the cost of the collectives, not a speed-up. Returns
+    the kernels-line fields (launches on the dp paths)."""
+    import torch
+
+    from masg_tpu_torch.parallel.distributed import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(dp_worker, DP_WORLD, backend="gloo", timeout_s=600)
+    spent = time.perf_counter() - t0
+    r0 = ranks[0]
+    fields = {}
+    for name, res in r0["train"].items():
+        variant, acc = name.split("/")
+        t = flagship_config().model.transformer  # one launch per attention layer
+        per_k = (t.encoder_layer + t.decoder_layer) * (2 if variant != "plain" else 1)
+        for i in range(DP_WORLD):
+            lp = ranks[i]["train"][name]["launches_per_step"]
+            assert lp == {"K1": per_k, "K2": per_k, "K3": per_k, "K4": 0}, (name, i, lp)
+        sums = {ranks[i]["train"][name]["param_checksum"] for i in range(DP_WORLD)}
+        assert len(sums) == 1, (name, sums)  # the replicas took the same updates
+        print(f"[dp] train {variant}, grad_acc_step {acc}, flagship B={B} L={L} T_mel={T_MEL} "
+              f"f32 (TF32 off), kernel path, dropout off, 2 ranks on cuda:0 (gloo) vs 1: "
+              f"reduced gradients max(|err| - 1e-4 |ref|) {res['grad_excess']:.3g} over "
+              f"{res['grad_tensors']} tensors (tol 5e-6), losses of "
+              f"{len(res['traj'])} steps max relative err {res['loss_rel']:.3g} (tol 1e-5), "
+              f"grad_norm {res['grad_norm_rel']:.3g}; launches per rank per step "
+              f"{ranks[0]['train'][name]['launches_per_step']}; {res['ms_1rank']:.1f} ms per "
+              f"step on 1 rank, {res['ms_2ranks']:.1f} ms on 2 ranks sharing the card "
+              f"(no speed-up expected); on {smi}")
+        assert res["grad_excess"] <= 5e-6 and res["loss_rel"] <= 1e-5, (name, res)
+        fields[f"{variant}/{acc}"] = {"launches_per_rank_per_step": per_k,
+                                      "ms_1rank": res["ms_1rank"],
+                                      "ms_2ranks_one_card": res["ms_2ranks"]}
+    g, v = r0["ge2e"], r0["vocoder"]
+    print(f"[dp] GE2E N x M = {GE2E_N} x {GE2E_M}, 150 frames, 2 ranks vs 1: (ge2e, da) "
+          f"losses {[tuple(round(x, 5) for x in s) for s in g['losses']]}, max relative err "
+          f"{g['rel']:.3g} (tol 1e-4); {g['ms_1rank']:.1f} ms per step on 1 rank, "
+          f"{g['ms_2ranks']:.1f} ms on 2 sharing the card; on {smi}")
+    assert g["rel"] <= 1e-4, g
+    print(f"[dp] vocoder GAN V1, B=16 x 8192, 2 ranks vs 1: VocoderMetrics of 2 steps max "
+          f"relative err {v['rel']:.3g} (tol 1e-5); {v['ms_1rank']:.1f} ms per step on 1 "
+          f"rank, {v['ms_2ranks']:.1f} ms on 2 sharing the card (the third step); on {smi}")
+    assert v["rel"] <= 1e-5, v
+    print(f"[dp] worker pair: {spent:.1f} s including start-up")
+    serve = dp_serve(smi)
+    dp_nccl(smi, pre_dir, root)
+    return {"train": fields, "serve_dispatch_B8": serve}
+
+
 def main() -> int:
     import torch
 
@@ -2907,6 +3287,7 @@ def main() -> int:
         cfg_dir = trainer_path(os.path.join(root, "trainer"))
         dump, mel_dir = dump_mels_path(smi, cfg_dir, root)
         finetune = vocoder_finetune_path(smi, root, mel_dir)
+        dp = dp_path(smi, os.path.join(root, "trainer", "pre"), root)
     finally:
         shutil.rmtree(root)
     train_entries, k1_train = train_kernel_times(train, smi)
@@ -2930,6 +3311,11 @@ def main() -> int:
         e["jdit"] = jdit[name]
     for e, name in zip((entries[0], entries[3]), ("K1", "K4")):
         e["melgan"] = {"path": "text->wav, MelGAN, float32", "launches_per_forward": melgan[name]}
+    for e in entries[:3]:  # [dp]: per rank per step, 2 ranks sharing the card
+        e["dp_train"] = dp["train"]
+    for e, name in zip((entries[0], entries[3]), ("K1", "K4")):
+        e["dp_serve"] = {"path": "ServingEngine(devices=[cuda:0, cuda:0]), B=8, bucket 128",
+                         "launches_per_dispatch": dp["serve_dispatch_B8"][name]}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

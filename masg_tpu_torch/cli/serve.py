@@ -6,7 +6,7 @@ pipeline: the model and vocoder stay on the card, every (batch, text) bucket
 runs once at start-up, and each request is one padded dispatch.
 
     python -m masg_tpu_torch.cli.serve -c <config_dir> -r <step> [--port 8000] \
-        [--device cuda]
+        [--device cuda] [--dynamic_batch 32 [--data_parallel]]
 
 Endpoints:
   GET  /health      -> {"status": "ok", "buckets": {...}, "requests": N, ...}
@@ -23,8 +23,9 @@ Endpoints:
       "sample_rate", "bucket", "wav_b64"}.
 
 Concurrency: ThreadingHTTPServer handles sockets concurrently; device work
-is serialized inside the engine (one card, one queue). masg_tpu's XLA
-compile cache has no counterpart here.
+is serialized inside the engine (one queue). `--data_parallel` splits each
+batched dispatch over one replica per card (`ServingEngine(devices=)`).
+masg_tpu's XLA compile cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -253,6 +254,29 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8000,
     return ThreadingHTTPServer((host, port), handler)
 
 
+def data_parallel_devices(device: str, dynamic_batch: int) -> list:
+    """masg_tpu's `--data_parallel` sizing: the data axis fits the LARGEST
+    batch bucket the DynamicBatcher dispatches (powers of 2 up to
+    `dynamic_batch`), since a wider one divides no batch and shards nothing;
+    one card per replica (the CPU counts as one device)."""
+    import torch
+
+    from ..parallel.mesh import data_parallel_size
+
+    max_bucket = 1
+    while max_bucket < dynamic_batch:
+        max_bucket *= 2
+    n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    n_data = data_parallel_size(max_bucket, n_dev)
+    if n_data <= 1:
+        print(f"warning: --data_parallel with --dynamic_batch {dynamic_batch} shards "
+              f"nothing (largest batch bucket {max_bucket} / {n_dev} devices); raise "
+              f"--dynamic_batch to at least the device count", flush=True)
+    if torch.device(device).type != "cuda":
+        return [device] * n_data
+    return [f"cuda:{i}" for i in range(n_data)]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("-c", "--config", required=True)
@@ -290,12 +314,9 @@ def main(argv=None):
                         help="pinyin lexicon path (zh requests); defaults to "
                              "<config_dir>/lexicon/pinyin-lexicon-r.txt or cwd")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet (ROADMAP.md queue 1 item 12)")
+                        help="shard batched dispatches over the cards (one replica each); "
+                             "scales --dynamic_batch throughput with the card count")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: serving over a device mesh is not ported yet "
-            "(ROADMAP.md queue 1 item 12)")
 
     import torch
 
@@ -309,11 +330,15 @@ def main(argv=None):
     if not args.no_vocoder:
         vocoder = get_vocoder(cfg.model, cfg.config_dir, checkpoint=args.vocoder_checkpoint,
                               device=args.device, dtype=dtype)
+    devices = None
+    if args.data_parallel:
+        devices = data_parallel_devices(args.device, args.dynamic_batch)
+        print(f"data-parallel serving over {len(devices)} devices", flush=True)
     engine = ServingEngine(cfg, restore_step=args.restore_step, checkpoint=args.checkpoint,
                            vocoder=vocoder,
                            text_buckets=tuple(int(b) for b in args.buckets.split(",")),
                            frames_per_phone=args.frames_per_phone, dtype=dtype,
-                           device=args.device)
+                           device=args.device, devices=devices)
     batch_ladder = (1,)
     batcher = None
     if args.dynamic_batch > 1:

@@ -4,6 +4,7 @@
         [--checkpoint p] [--use_clf [--clf_featurization model|ge2e]]
         [--corpus A B ...] [--max_steps N] [--seed S] [--bf16]
         [--param_storage f32|bf16|bf16_moments] [--device cuda|cpu] [--no-use_flash]
+        [--n_devices N] [--n_model 1] [--multihost]
 
 masg_tpu's flags, with `--flash` become `--use_flash/--no-use_flash` (on by
 default: attention through kernels K1-K3) and `--device` added (default
@@ -13,17 +14,22 @@ moments) in bf16 with an f32 master copy, so the model computes in bf16.
 `--use_clf` trains against the frozen GE2E discriminator of train.yaml's
 `discriminator_path` (a checkpoint of `cli.train_speech_embedder`, or of
 the reference, in the reference's torch format), or a random one when none
-is set. masg_tpu's mesh flags (`--n_devices`, `--n_model`, `--multihost`)
-wait for ROADMAP.md queue 1 item 12; `--rng_impl` (a TPU generator) has no
-counterpart.
+is set. masg_tpu's mesh flags train data-parallel (`parallel/`): `--n_devices
+N` spawns one process per card (N capped at the cards present; the data axis
+is `data_parallel_size(batch_size, N)`), `--multihost` joins the process
+group the environment names (masg_tpu's MASG_* names or torchrun's) and
+trains on card LOCAL_RANK; `--n_model` > 1 (tensor parallelism) raises.
+`--rng_impl` (a TPU generator) has no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ..parallel.mesh import add_parallel_flags, launch_data_parallel
 
-def main(argv=None):
+
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", type=str, required=True,
                         help="experiment config directory")
@@ -49,20 +55,32 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--use_flash", action=argparse.BooleanOptionalAction, default=True,
                         help="attention through the flash kernels (forward and backward)")
-    args = parser.parse_args(argv)
+    add_parallel_flags(parser)
+    return parser.parse_args(argv)
 
+
+def main(argv=None):
+    from ..core.config import load_config_dir
+
+    args = parse_args(argv)
+    cfg = load_config_dir(args.config)
+    return launch_data_parallel(run, args, cfg.train.optimizer.batch_size)
+
+
+def run(args, device):
+    """Train on `device` (this process's share when a process group is joined)."""
     from ..core.config import load_config_dir
     from ..train.loop import build_experiment
 
-    cfg = load_config_dir(args.config)
-    trainer = build_experiment(cfg, corpora=args.corpus, use_clf=args.use_clf,
-                               restore_step=args.restore_step, checkpoint=args.checkpoint,
-                               seed=args.seed, device=args.device,
+    trainer = build_experiment(load_config_dir(args.config), corpora=args.corpus,
+                               use_clf=args.use_clf, restore_step=args.restore_step,
+                               checkpoint=args.checkpoint, seed=args.seed, device=device,
                                use_flash=args.use_flash, bf16=args.bf16,
                                param_storage=args.param_storage,
                                clf_featurization=args.clf_featurization)
-    n_params = sum(p.numel() for p in trainer.model.parameters())
-    print(f"Number of FastSpeech2 Parameters: {n_params}")
+    if trainer.mesh.is_lead:
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        print(f"Number of FastSpeech2 Parameters: {n_params}")
     return trainer.fit(restore_step=args.restore_step, max_steps=args.max_steps)
 
 

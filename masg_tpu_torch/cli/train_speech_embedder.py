@@ -4,6 +4,7 @@
         --out_dir <dir> [--datasets JVS VCTK] [-N 32] [-M 10] [--epochs 2400]
         [--batches_per_epoch B] [--lr 1e-3] [--da_startpoint 0.0] [--wo_ge2e]
         [--checkpoint_interval 200] [--seed 0] [--device cuda|cpu]
+        [--n_devices N] [--multihost]
 
 The reference submodule's `python train_speech_embedder.py`
 (Multilingual-.../train_speech_embedder.py:115-248), configured by flags.
@@ -11,13 +12,17 @@ The reference submodule's `python train_speech_embedder.py`
 (`preprocessor.ge2e_preprocess.build_ge2e_corpus`). Checkpoints are the
 reference's torch format, `<out_dir>/final_epoch_<epochs>.pth` last: a
 `discriminator_path` for `cli.train --use_clf` and `cli.train_ganlike` in
-both packages. `--n_devices` (masg_tpu's data-parallel mesh) waits for
-ROADMAP.md queue 1 item 12.
+both packages. `--n_devices N` trains data-parallel over N processes (the
+reference's NCCL DDP, masg_tpu's mesh): the N x M chunk batch splits by
+rows over `data_parallel_size(N * M, n_devices)` of them; `--multihost`
+joins the group the environment names (see `cli.train`).
 """
 
 from __future__ import annotations
 
 import argparse
+
+from ..parallel.mesh import add_parallel_flags, launch_data_parallel
 
 
 def main(argv=None):
@@ -36,16 +41,14 @@ def main(argv=None):
                         help="reproduce the reference snapshot's woGE2E ablation")
     parser.add_argument("--checkpoint_interval", type=int, default=200)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--n_devices", type=int, default=None,
-                        help="data-parallel GE2E: not ported yet (raises)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    add_parallel_flags(parser)
     args = parser.parse_args(argv)
+    return launch_data_parallel(run, args, args.n_speakers * args.m_utts)
 
-    if args.n_devices is not None:
-        from ..train.step import unported
 
-        raise unported("--n_devices (data-parallel GE2E training)", 12)
-
+def run(args, device):
+    """Train on `device` (this process's share when a process group is joined)."""
     from ..train.ge2e import train_speaker_encoder
 
     return train_speaker_encoder(
@@ -61,7 +64,7 @@ def main(argv=None):
         use_ge2e_backward=not args.wo_ge2e,
         checkpoint_interval=args.checkpoint_interval,
         seed=args.seed,
-        device=args.device,
+        device=device,
     )
 
 

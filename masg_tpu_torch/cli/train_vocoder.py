@@ -5,6 +5,7 @@
         [--mel_dir out/predicted_mel] [--warm_start_generator g.pth.tar]
         [--warm_start_discriminators do_02500000]
         [--restore out/vocoder/vocoder_5000.pth.tar] [--device cuda|cpu]
+        [--n_devices N] [--multihost]
 
 masg_tpu's flags plus `--device` (default `cuda`) and
 `--warm_start_discriminators` (upstream's `do_*` file, for fine-tuning a
@@ -21,7 +22,11 @@ the same cost at any step (masg_tpu restarts the stream);
 `generator_{step}.pth.tar` is `{"generator": state_dict}` with weight norm
 folded, the upstream format, which `infer.vocoder.get_vocoder(checkpoint=)`
 and masg_tpu's `load_generator_checkpoint` read. `log.jsonl` gets masg_tpu's lines.
-`--n_devices` above 1 waits for ROADMAP.md queue 1 item 12.
+`--n_devices N` trains data-parallel as masg_tpu does (its mesh over the
+batch): `data_parallel_size(batch_size, N)` processes, each on its rows of
+every batch (all of them draw the same stream), averaging the gradients;
+rank 0 logs and writes the checkpoints. `--multihost` joins the group the
+environment names (see `cli.train`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import argparse
 import json
 import os
 import time
+
+from ..parallel.mesh import add_parallel_flags, launch_data_parallel
 
 # the reference hifigan/config.json (universal V1) and masg_tpu's training defaults
 DEFAULT_TRAIN_CONFIG = {
@@ -78,43 +85,56 @@ def main(argv=None):
                              "0.95-peak normalization (from-scratch mode only; fine-tuning "
                              "never normalizes, matching upstream)")
     parser.add_argument("--seed", type=int, default=None)
-    parser.add_argument("--n_devices", type=int, default=None,
-                        help="data-parallel device count (only 1 is ported)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    add_parallel_flags(parser)
     args = parser.parse_args(argv)
+    cfg = training_config(args.config)
+    return launch_data_parallel(run, args, args.batch_size or int(cfg["batch_size"]))
 
-    from ..train.step import unported
 
-    if args.n_devices is not None and args.n_devices > 1:
-        raise unported("cli.train_vocoder --n_devices > 1 (data-parallel GAN training)", 12)
+def training_config(path=None) -> dict:
+    """The HiFi-GAN training config: V1 and the defaults above, then the
+    file at `path` (or `hifigan/config.json` at the repository root)."""
+    from ..infer.vocoder import DEFAULT_HIFIGAN_CONFIG
 
+    cfg = {**DEFAULT_HIFIGAN_CONFIG, **DEFAULT_TRAIN_CONFIG}
+    default_cfg = os.path.join(os.path.dirname(__file__), "..", "..", "hifigan", "config.json")
+    cfg_path = path or (default_cfg if os.path.exists(default_cfg) else None)
+    if cfg_path:
+        with open(cfg_path) as f:
+            cfg.update(json.load(f))
+    return cfg
+
+
+def run(args, device):
+    """Train on `device` (this process's share when a process group is joined)."""
     import numpy as np
     import torch
 
     from ..data.vocoder import VocoderFineTuneDataset, VocoderSegmentDataset, list_wavs
     from ..device import resolve_device
-    from ..infer.vocoder import DEFAULT_HIFIGAN_CONFIG, load_generator_checkpoint
+    from ..infer.vocoder import load_generator_checkpoint
+    from ..parallel.mesh import DataMesh
     from ..train.vocoder import (export_generator_state_dict, init_vocoder_train_state,
                                  load_upstream_discriminators, make_vocoder_train_step)
 
-    device = resolve_device(args.device)
-    cfg = {**DEFAULT_HIFIGAN_CONFIG, **DEFAULT_TRAIN_CONFIG}
-    default_cfg = os.path.join(os.path.dirname(__file__), "..", "..", "hifigan", "config.json")
-    cfg_path = args.config or (default_cfg if os.path.exists(default_cfg) else None)
-    if cfg_path:
-        with open(cfg_path) as f:
-            cfg.update(json.load(f))
+    device = resolve_device(device)
+    cfg = training_config(args.config)
     batch_size = args.batch_size or int(cfg["batch_size"])
     seed = args.seed if args.seed is not None else int(cfg.get("seed", 1234))
+    mesh = DataMesh.from_process_group(batch_size)
+    lead = mesh.is_lead
 
     if args.mel_dir:
         dataset = VocoderFineTuneDataset(
             args.mel_dir, args.wav_dir, segment_size=int(cfg["segment_size"]),
             hop_size=int(cfg["hop_size"]), sample_rate=int(cfg["sampling_rate"]), seed=seed)
-        print(f"{len(dataset.pairs)} (mel, wav) fine-tuning pairs")
+        if lead:
+            print(f"{len(dataset.pairs)} (mel, wav) fine-tuning pairs")
     else:
         paths = list_wavs(args.wav_dir)
-        print(f"{len(paths)} training wavs under {args.wav_dir}")
+        if lead:
+            print(f"{len(paths)} training wavs under {args.wav_dir}")
         dataset = VocoderSegmentDataset(
             paths, segment_size=int(cfg["segment_size"]),
             sample_rate=int(cfg["sampling_rate"]), seed=seed,
@@ -132,8 +152,12 @@ def main(argv=None):
         payload = torch.load(args.restore, map_location="cpu", weights_only=True)
         state.load_state_dict(payload)
         dataset.load_stream_state(payload["data_stream"])
-        print(f"restored {args.restore} at step {state.step}")
-    step_fn = make_vocoder_train_step(cfg, from_mels=bool(args.mel_dir))
+        if lead:
+            print(f"restored {args.restore} at step {state.step}")
+    mesh.replicate([*state.generator.state_dict().values(), *state.mpd.state_dict().values(),
+                    *state.msd.state_dict().values()])
+    step_fn = make_vocoder_train_step(cfg, from_mels=bool(args.mel_dir), mesh=mesh)
+    rows = mesh.rows(batch_size)
 
     os.makedirs(args.out, exist_ok=True)
     start = state.step
@@ -141,12 +165,14 @@ def main(argv=None):
     t0 = time.time()
     log_path = os.path.join(args.out, "log.jsonl")
     for batch in batches:
-        if args.mel_dir:
-            batch = tuple(torch.from_numpy(np.asarray(x)).to(device) for x in batch)
+        if args.mel_dir:  # this rank's rows
+            batch = tuple(torch.from_numpy(np.asarray(x)[rows]).to(device) for x in batch)
         else:
-            batch = torch.from_numpy(batch).to(device)
+            batch = torch.from_numpy(batch[rows]).to(device)
         state, metrics = step_fn(state, batch)
         step = state.step
+        if not lead:
+            continue
         if step % args.log_step == 0 or step == start + 1:
             rate = (step - start) / max(1e-9, time.time() - t0)
             line = {"step": step, "disc_loss": float(metrics.disc_loss),
@@ -160,7 +186,9 @@ def main(argv=None):
                        {**state.state_dict(), "data_stream": dataset.stream_state()})
             save_torch(os.path.join(args.out, f"generator_{step}.pth.tar"),
                        {"generator": export_generator_state_dict(state.generator)})
-    print(f"done at step {state.step}; checkpoints in {args.out}")
+    mesh.barrier()  # the others return once rank 0's checkpoints are whole
+    if lead:
+        print(f"done at step {state.step}; checkpoints in {args.out}")
     return state
 
 

@@ -23,6 +23,14 @@ window, so requests interleave between windows. Every request tensor is put
 on the engine's device explicitly, and `torch.inference_mode()` is entered
 per call (it is thread-local).
 
+Data-parallel serving (masg_tpu's `mesh=`, `_place_dp`): given `devices`,
+the engine holds one replica of the model and the vocoder per device, in
+one process. A dispatch whose batch divides into len(devices) equal row
+blocks runs block i on replica i (the launches are queued on every card
+before any result is read, so the cards overlap) and concatenates the
+blocks on the first device; any other batch (the B = 1 latency path) runs
+whole on the first replica, as masg_tpu replicates it.
+
 `DynamicBatcher`, `ServerOverloaded`, `RequestTimeout` and `pick_bucket` are
 plain Python, copied from masg_tpu/infer/serving.py.
 """
@@ -30,6 +38,7 @@ plain Python, copied from masg_tpu/infer/serving.py.
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -71,6 +80,8 @@ class ServingEngine:
     dtype, device: the model's dtype and device (the card when None).
     use_flash: attention through kernel K1 (the vocoder's `fused_mrf` is its
         own switch).
+    devices: data-parallel serving over these devices (one replica each;
+        `device` is then the first), e.g. `["cuda:0", "cuda:1"]`.
     """
 
     def __init__(self, cfg: ExperimentConfig, restore_step: int = 0,
@@ -79,9 +90,11 @@ class ServingEngine:
                  text_buckets: Sequence[int] = (16, 32, 64, 128),
                  frames_per_phone: int = 12, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, use_flash: bool = True,
-                 checkpoint: Optional[str] = None):
+                 checkpoint: Optional[str] = None,
+                 devices: Optional[Sequence[DeviceLike]] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.dtype = dtype
         self.text_buckets = tuple(sorted(text_buckets))
         self.hop = cfg.preprocess.stft.hop_length
@@ -96,6 +109,11 @@ class ServingEngine:
         if vocoder is not None and (vocoder.dtype != dtype or vocoder.device != self.device):
             vocoder = vocoder.to(self.device, dtype)
         self.vocoder = vocoder
+        # one (model, vocoder) per device; the first is the one above
+        self.replicas = [(self.model, vocoder)] + [
+            (copy.deepcopy(self.model).to(d),
+             None if vocoder is None else vocoder.to(d, dtype))
+            for d in self.devices[1:]]
 
         self.mel_caps: Dict[int, int] = {
             L: min(cfg.model.max_seq_len, round_up(L * frames_per_phone, 128))
@@ -140,13 +158,38 @@ class ServingEngine:
         """One dispatch at the (B, L) of `texts`: FastSpeech2 free-running to
         the bucket's mel cap, then (unless `mel_only` or mel-only engine) the
         vocoder over the full padded mel. Returns (wav or postnet_mel, mel_len)
-        as tensors on the device. The caller holds the engine lock."""
-        B, L = texts.shape
-        T = self.mel_caps[L]
-        dev = self.device
+        as tensors on the (first) device. With several replicas a batch that
+        divides into equal row blocks runs a block on each. The caller holds
+        the engine lock."""
+        B = texts.shape[0]
+        n = len(self.replicas)
         c = np.asarray(controls, np.float32)
         if c.ndim == 1:  # shared controls -> one row per batch item
             c = np.tile(c, (B, 1))
+        spk = np.asarray(speaker_id, np.int64)
+        if spk.ndim == 0:
+            spk = np.full((B,), spk, np.int64)
+        if n == 1 or B % n:
+            return self._run_on(0, texts, src_lens, accents, spk, speaker_meta, speaker_emb,
+                                c, mel_only)
+        per = B // n
+
+        def rows(a, i):
+            return None if a is None else np.asarray(a)[i * per:(i + 1) * per]
+
+        parts = [self._run_on(i, *(rows(a, i) for a in (texts, src_lens, accents, spk,
+                                                        speaker_meta, speaker_emb, c)),
+                              mel_only)
+                 for i in range(n)]
+        return tuple(torch.cat([p[j].to(self.device) for p in parts]) for j in range(2))
+
+    def _run_on(self, i: int, texts, src_lens, accents, spk, speaker_meta, speaker_emb, c,
+                mel_only: bool):
+        """`_run` on replica i, whose device gets every input."""
+        B, L = texts.shape
+        T = self.mel_caps[L]
+        dev = self.devices[i]
+        model, vocoder = self.replicas[i]
         c = torch.as_tensor(c, device=dev)
         p_c, e_c, d_c = c[:, 0:1], c[:, 1:2], c[:, 2:3]
 
@@ -157,23 +200,18 @@ class ServingEngine:
             if speaker_emb is not None:
                 emb = torch.as_tensor(np.asarray(speaker_emb, np.float32), device=dev,
                                       dtype=self.dtype)
-                out = self.model.synthesize_from_speaker_emb(
+                out = model.synthesize_from_speaker_emb(
                     ids(texts), ids(src_lens), T, emb, p_control=p_c, e_control=e_c,
                     d_control=d_c, accents=ids(accents))
             else:
-                spk = np.asarray(speaker_id, np.int64)
-                if spk.ndim == 0:
-                    spk = np.full((B,), spk, np.int64)
                 meta = (np.asarray(speaker_meta, np.float32) if speaker_meta is not None
                         else np.zeros((B, self.meta_dim), np.float32))
-                out = self.model(ids(spk), ids(texts), ids(src_lens), T,
-                                 p_control=p_c, e_control=e_c, d_control=d_c,
-                                 accents=ids(accents),
-                                 speaker_meta=torch.as_tensor(meta, device=dev,
-                                                              dtype=self.dtype))
-            if mel_only or self.vocoder is None:
+                out = model(ids(spk), ids(texts), ids(src_lens), T,
+                            p_control=p_c, e_control=e_c, d_control=d_c, accents=ids(accents),
+                            speaker_meta=torch.as_tensor(meta, device=dev, dtype=self.dtype))
+            if mel_only or vocoder is None:
                 return out.postnet_mel, out.mel_len
-            return self.vocoder(out.postnet_mel), out.mel_len
+            return vocoder(out.postnet_mel), out.mel_len
 
     # ------------------------------------------------------------------
     def _pad_request(self, ids, accent_ids):

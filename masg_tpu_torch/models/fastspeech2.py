@@ -162,7 +162,7 @@ class FastSpeech2(nn.Module):
     def _synthesis_core(self, texts, src_lens, max_mel_len, speaker_vec,
                         mel_pad_mask_in, p_targets, e_targets, d_targets,
                         p_control, e_control, d_control, accents, mels=None,
-                        jdit_generator=None) -> FS2Output:
+                        jdit_generator=None, mesh=None) -> FS2Output:
         src_pad_mask = pad_mask_from_lengths(src_lens, texts.shape[1])
         x = self.encoder(texts, src_pad_mask, accents, src_lens)
         mel_jdit = alignments = None
@@ -177,7 +177,7 @@ class FastSpeech2(nn.Module):
         dec_out, mel_pad_mask = self.decoder(va.x, va.mel_pad_mask, va.mel_len,
                                              truncate=d_targets is not None)
         mel = self.mel_linear(dec_out)
-        postnet_mel = self.postnet(mel) + mel
+        postnet_mel = self.postnet(mel, mesh) + mel
         return FS2Output(
             mel=mel,
             postnet_mel=postnet_mel,
@@ -203,9 +203,12 @@ class FastSpeech2(nn.Module):
                 accents: Optional[torch.Tensor] = None,
                 speaker_meta: Optional[torch.Tensor] = None,
                 mels: Optional[torch.Tensor] = None,
-                jdit_generator: Optional[torch.Generator] = None) -> FS2Output:
+                jdit_generator: Optional[torch.Generator] = None,
+                mesh=None) -> FS2Output:
         """`mels` (B, T, n_mels), the ground truth, runs the JDIT teacher of a
-        `use_jdit` model, its dropout masks drawn from `jdit_generator`."""
+        `use_jdit` model, its dropout masks drawn from `jdit_generator`.
+        `mesh` (`parallel.mesh.DataMesh`): the data mesh whose global batch
+        PostNet's train-mode BatchNorm takes its statistics over."""
         speaker_vec = speaker_gmm = None
         if self.multi_speaker:
             speaker_vec = self.speaker_emb(speakers)
@@ -216,7 +219,7 @@ class FastSpeech2(nn.Module):
         out = self._synthesis_core(texts, src_lens, max_mel_len, speaker_vec,
                                    mel_pad_mask_in, p_targets, e_targets, d_targets,
                                    p_control, e_control, d_control, accents, mels,
-                                   jdit_generator)
+                                   jdit_generator, mesh)
         return out._replace(speaker_gmm=speaker_gmm, speaker_emb=speaker_vec)
 
     def synthesize_from_speaker_emb(self, texts: torch.Tensor, src_lens: torch.Tensor,

@@ -40,12 +40,17 @@ class TorchBatchNorm(nn.BatchNorm1d):
             setattr(self, n, v.to(new.device, dtype))
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 1))
-            var = (xf - mean).square().mean(dim=(0, 1))  # biased: normalisation
-            n = x.shape[0] * x.shape[1]
+            if mesh is None or mesh.parts == 1:
+                mean = xf.mean(dim=(0, 1))
+                var = (xf - mean).square().mean(dim=(0, 1))  # biased: normalisation
+                n = x.shape[0] * x.shape[1]
+            else:
+                n = x.shape[0] * x.shape[1] * mesh.parts
+                mean = mesh.sum(xf.sum(dim=(0, 1))) / n
+                var = mesh.sum((xf - mean).square().sum(dim=(0, 1))) / n
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean.to(self.running_mean.dtype))
@@ -69,11 +74,11 @@ class PostNet(nn.Module):
             for i in range(n_convolutions))
         self.dropout = nn.Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, n_mels) -> (B, T, n_mels)."""
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """x: (B, T, n_mels) -> (B, T, n_mels); `mesh`: see TorchBatchNorm."""
         last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
-            x = bn(conv(x.transpose(1, 2)).transpose(1, 2))
+            x = bn(conv(x.transpose(1, 2)).transpose(1, 2), mesh)
             if i != last:
                 x = torch.tanh(x)
             x = self.dropout(x)

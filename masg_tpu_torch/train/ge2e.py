@@ -16,9 +16,16 @@ two biases per gate (masg_tpu's folded bias takes a doubled update, half
 the weight decay and a double-counted clip norm). The port has both from
 torch itself and emulates neither.
 
-masg_tpu's fused `lax.scan` epoch and its device mesh have no counterpart:
-the port steps batch by batch on one device (data-parallel GE2E is ROADMAP.md
-queue 1 item 12).
+masg_tpu's fused `lax.scan` epoch has no counterpart: the port steps batch
+by batch. Data parallelism (masg_tpu's mesh over the N x M chunk batch,
+:365-401): every rank samples the same global batch and embeds its rows;
+the embeddings are gathered (`DataMesh.gather_rows`, as XLA's all-gather)
+before the (N, M, N) similarity, which every rank then computes whole and
+counts 1 / n_data of as its part (the gather's backward sums the ranks'
+cotangents, so the parts' summed gradients are the one-device gradient,
+the similarity's w and b included, and not n times it). The DA loss, a sum
+over rows, is each rank's rows' part. The three Adams step on the summed
+gradient, so the replicas stay equal; rank 0 writes the checkpoints.
 
 Faithfulness note (masg_tpu's): the shipped reference snapshot has the GE2E
 backward commented out (train_speech_embedder.py:184, the
@@ -40,6 +47,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.speaker_encoder import (GE2ELossParams, SpeechEmbedder, bce_with_logits_sum,
                                       ge2e_loss, init_ge2e_params)
+from ..parallel.mesh import DataMesh
 
 
 class SpeakerChunkDataset:
@@ -154,6 +162,7 @@ def make_ge2e_train_step(
     lr: float = 1e-3,
     use_ge2e_backward: bool = True,
     da_threshold: Optional[float] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> Tuple[Callable[..., GE2ETrainState], Callable]:
     """(init_state, step) with the reference's per-group update semantics
     (train_speech_embedder.py:104-112,169-192).
@@ -173,7 +182,12 @@ def make_ge2e_train_step(
     its only gradient. `lr_scale` is the reference's epoch-end halving of the
     main and ge2e learning rates (lr_schedule, :83-94,207); the DA group's lr
     never anneals. The embedder runs in train mode: the head's dropout is live.
+
+    `mesh`: this rank's share of a data-parallel run; `mels` and `langs`
+    are then still the GLOBAL batch, of which the step embeds this rank's
+    rows, and the returned losses are the global ones.
     """
+    mesh = mesh or DataMesh()
     if da_threshold is None:
         da_threshold = compute_da_threshold(n_speakers, m_utts)
 
@@ -192,14 +206,19 @@ def make_ge2e_train_step(
         for o in (state.opt_main, state.opt_ge2e, state.opt_da):
             o.zero_grad(set_to_none=True)
         net.train()
-        out = net(_as_tensor(mels, w))
-        emb = out["embeddings"].reshape(n_speakers, m_utts, -1)
-        _, loss, da = ge2e_loss(ge2e, emb, out.get("da_lang_logits"), _as_tensor(langs, w))
-        gate = bool(da.detach() < da_threshold) or bool(pretrain)
+        rows = mesh.rows(len(mels))
+        langs = _as_tensor(langs, w)
+        out = net(_as_tensor(mels[rows], w))
+        emb = mesh.gather_rows(out["embeddings"]).reshape(n_speakers, m_utts, -1)
+        # the GE2E loss of the whole batch and this rank's rows' DA part
+        _, loss, da = ge2e_loss(ge2e, emb, out.get("da_lang_logits"), langs[rows])
+        da_all = mesh.sum(da.detach())
+        gate = bool(da_all < da_threshold) or bool(pretrain)
         if use_ge2e_backward:
-            loss.backward(retain_graph=gate)
+            (loss / mesh.parts if mesh.parts > 1 else loss).backward(retain_graph=gate)
         if gate:
             da.backward()
+        mesh.reduce_grads([*net.parameters(), *ge2e.parameters()])
         for o in (state.opt_main, state.opt_ge2e):
             for g in o.param_groups:
                 g["lr"] = lr * lr_scale
@@ -210,38 +229,44 @@ def make_ge2e_train_step(
         if gate:
             torch.nn.utils.clip_grad_norm_(net.da_parameters(), 3.0)
             state.opt_da.step()
-        return state, loss.detach(), da.detach()
+        return state, loss.detach(), da_all
 
     return init_state, step
 
 
-def make_da_subroutine_step() -> Callable:
+def make_da_subroutine_step(mesh: Optional[DataMesh] = None) -> Callable:
     """The DA-head-only step of the reference's da_classifier_subroutine
     (train_speech_embedder.py:249-288): embeddings detached, the head's
     dropout live (train mode), BCE summed, clip 3.0, then the shared
-    optimizers['da'] (:214). `step(state, mels, langs) -> loss`."""
+    optimizers['da'] (:214). `step(state, mels, langs) -> loss`; under
+    `mesh`, of the global batch (this rank embeds its rows)."""
+    mesh = mesh or DataMesh()
+
     def step(state: GE2ETrainState, mels, langs) -> torch.Tensor:
         net = state.embedder
         w = next(net.parameters())
         state.opt_da.zero_grad(set_to_none=True)
         net.train()
-        out = net(_as_tensor(mels, w), detach=True)
-        loss = bce_with_logits_sum(out["da_lang_logits"], _as_tensor(langs, w))
+        rows = mesh.rows(len(mels))
+        out = net(_as_tensor(mels[rows], w), detach=True)
+        loss = bce_with_logits_sum(out["da_lang_logits"], _as_tensor(langs, w)[rows])
         loss.backward()
+        mesh.reduce_grads(net.da_parameters())
         torch.nn.utils.clip_grad_norm_(net.da_parameters(), 3.0)
         state.opt_da.step()
-        return loss.detach()
+        return mesh.sum(loss.detach())
 
     return step
 
 
 def run_da_subroutine(state: GE2ETrainState, dataset: SpeakerChunkDataset, n_speakers: int,
                       batches: int = 8, max_epochs: int = 10,
-                      verbose: bool = False) -> GE2ETrainState:
+                      verbose: bool = False, mesh: Optional[DataMesh] = None
+                      ) -> GE2ETrainState:
     """Retrain the DA head to convergence: stops when an epoch's average loss
     is under 20 or above the previous one, like the reference. Steps the
     train state's own DA optimizer, so its moments carry over both ways."""
-    step = make_da_subroutine_step()
+    step = make_da_subroutine_step(mesh)
     prev = float("inf")
     for e in range(max_epochs):
         total = 0.0
@@ -292,22 +317,26 @@ def train_speaker_encoder(
     epochs and `<out_dir>/final_epoch_<epochs>.pth` at the end, in the
     reference's torch format (`save_ge2e_checkpoint`). The batches are masg_tpu's
     for the same seed; each step seeds torch's generators from (seed, step)
-    for its dropout masks."""
+    for its dropout masks. In a joined process group each rank trains its
+    share of every batch (`make_ge2e_train_step`), seeding its masks from
+    (seed, step, rank)."""
     from .loop import step_seed
 
     dev = resolve_device(device)
     ds = SpeakerChunkDataset(data_path, datasets, m_utts=m_utts, seed=seed)
     n_speakers = min(n_speakers, len(ds))
     batches_per_epoch = batches_per_epoch or max(1, len(ds) // n_speakers)
+    mesh = DataMesh.from_process_group(n_speakers * m_utts)
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         embedder = SpeechEmbedder(n_mels=n_mels)
     embedder.to(dev)
     init_state, step = make_ge2e_train_step(embedder, n_speakers, m_utts, lr,
-                                            use_ge2e_backward)
+                                            use_ge2e_backward, mesh=mesh)
     ds.sample_batch(n_speakers, variable_length=False)  # masg_tpu's init batch: same draws
     state = init_state()
+    mesh.replicate([*embedder.parameters(), *state.ge2e.parameters()])
     os.makedirs(out_dir, exist_ok=True)
 
     n_step = 0
@@ -319,19 +348,22 @@ def train_speaker_encoder(
         for _ in range(batches_per_epoch):
             mels, langs = ds.sample_batch(n_speakers, variable_length=False)
             n_step += 1
-            torch.manual_seed(step_seed(seed, n_step))
+            torch.manual_seed(step_seed(seed, n_step, mesh.rank))
             state, loss, da = step(state, mels, langs, pretrain, lr_scale)
             total += float(loss)
             total_da += float(da)
-        if verbose:
+        if verbose and mesh.is_lead:
             print(f"Epoch {e+1}: avg ge2e {total/batches_per_epoch:.3f} "
                   f"avg da {total_da/batches_per_epoch:.3f}")
         if progress > da_startpoint:
             # the reference retrains the DA classifier each epoch (:249-288)
-            state = run_da_subroutine(state, ds, n_speakers, batches=batches_per_epoch)
-        if (e + 1) % checkpoint_interval == 0:
+            state = run_da_subroutine(state, ds, n_speakers, batches=batches_per_epoch,
+                                      mesh=mesh)
+        if (e + 1) % checkpoint_interval == 0 and mesh.is_lead:
             save_ge2e_checkpoint(os.path.join(out_dir, f"ckpt_epoch_{e + 1}.pth"), state)
-    save_ge2e_checkpoint(os.path.join(out_dir, f"final_epoch_{epochs}.pth"), state)
+    if mesh.is_lead:
+        save_ge2e_checkpoint(os.path.join(out_dir, f"final_epoch_{epochs}.pth"), state)
+    mesh.barrier()  # the others return once the checkpoint is whole
     return state
 
 

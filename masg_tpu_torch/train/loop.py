@@ -1,4 +1,4 @@
-"""Training loop + evaluation, one device (port of masg_tpu/train/loop.py).
+"""Training loop + evaluation (port of masg_tpu/train/loop.py).
 
 Reference control flow (train.py:30-293): an epoch-less loop over the
 grouped loader; per real batch one train step (train/step.py); periodic
@@ -18,8 +18,18 @@ one optimizer, `models/ganlike.py`), each with `param_storage`, and each with
 the JDIT teacher when the config sets `jdit.use_jdit` (its loss joins the
 plain and `--use_clf` steps, as in masg_tpu; ganlike's step leaves it out).
 
+Data parallelism (masg_tpu's device mesh): one process per device, joined
+in a torch.distributed group (`parallel/`). Every rank builds the same
+loader from the same seed and takes its rows of each global batch
+(`DataMesh.shard_batch`); the step sums the ranks' gradients, so every rank
+takes the one-device update. Parameters and buffers are broadcast from rank
+0 at start and after a restore. Rank 0 logs, synthesizes samples, evaluates
+and writes checkpoints (in the one layout of `core/checkpoint.py`, whatever
+the topology); the other ranks meet it at a barrier. Each rank seeds its
+dropout from (seed, step, rank).
+
 masg_tpu's `_pack_batch`/`_unpack_fn` (one host->device transfer per batch,
-a workaround for a remoted TPU) and its device mesh have no counterpart here.
+a workaround for a remoted TPU) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from __future__ import annotations
 import os
 import signal
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,16 +50,20 @@ from ..device import DeviceLike, resolve_device
 from ..models.fastspeech2 import FastSpeech2
 from ..models.ganlike import GANLike
 from ..models.speaker_encoder import SpeechEmbedder
+from ..parallel.mesh import DataMesh, check_model_axis
 from ..utils.logging import Logger, log_losses
 from .optim import noam_schedule
 from .state import TrainState, create_train_state
-from .step import batch_to_device, make_eval_step, make_ganlike_train_step, make_train_step
+from .step import (batch_to_device, draw_shuffle, make_eval_step, make_ganlike_train_step,
+                   make_train_step)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The dropout seed of `step`: a pure function of (seed, step), the
-    counterpart of masg_tpu's `fold_in(rng, step)`."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    counterpart of masg_tpu's `fold_in(rng, step)`; a rank > 0 of a
+    data-parallel run seeds its rows' masks from (seed, step, rank)."""
+    return int(np.random.SeedSequence([seed, step] + ([rank] if rank else []))
+               .generate_state(1)[0])
 
 
 class Trainer:
@@ -57,8 +71,9 @@ class Trainer:
                  train_loader: GroupedLoader, val_dataset: Optional[Dataset] = None,
                  seed: int = 0, autocast_dtype: Optional[torch.dtype] = None,
                  use_clf: bool = False, discriminator: Optional[SpeechEmbedder] = None,
-                 clf_featurization: str = "model"):
+                 clf_featurization: str = "model", mesh: Optional[DataMesh] = None):
         self.cfg = cfg
+        self.mesh = mesh or DataMesh()
         self.model = model = state.fs2  # the FastSpeech2 (ganlike: state.model's half)
         self.state = state
         self.discriminator = discriminator  # kept for introspection, as in masg_tpu
@@ -80,6 +95,8 @@ class Trainer:
                       use_speaker_prior=cfg.model.multi_speaker,
                       autocast_dtype=autocast_dtype)
         adversarial = dict(lambd=t.lambda_, total_step=self.total_step)
+        # the speaker shuffle (and ganlike's label jitter), drawn on the host
+        self._shuffle = use_clf or state.discriminator is not None
         if state.discriminator is not None:  # ganlike
             self.train_step_fn = make_ganlike_train_step(state.model, **adversarial, **levels)
         else:
@@ -94,11 +111,27 @@ class Trainer:
         self._lr_fn = noam_schedule(cfg.model.transformer.encoder_hidden,
                                     t.optimizer.warm_up_step, t.optimizer.anneal_steps,
                                     t.optimizer.anneal_rate)
-        self.train_logger = Logger(os.path.join(t.path.log_path, "train"))
-        self.val_logger = Logger(os.path.join(t.path.log_path, "val"))
+        self.train_logger = self.val_logger = None
+        if self.mesh.is_lead:
+            self.train_logger = Logger(os.path.join(t.path.log_path, "train"))
+            self.val_logger = Logger(os.path.join(t.path.log_path, "val"))
 
     def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return batch_to_device(batch, self.device, self.float_dtype)
+
+    def _train_batch(self, batch: Dict[str, np.ndarray], step: int
+                     ) -> Tuple[Dict[str, torch.Tensor], int, DataMesh]:
+        """(this rank's rows of the host batch on the device, the dropout
+        seed of this rank's step, the mesh of this batch): the train step's
+        arguments after the state."""
+        if self._shuffle:
+            batch = draw_shuffle(batch, step_seed(self.seed, step),
+                                 jitter=self.state.discriminator is not None,
+                                 max_frames=self.model.decoder.max_seq_len)
+        mesh = self.mesh.for_batch(len(batch["speakers"]))
+        # a replicated batch is the one-device step on every rank: rank 0's masks
+        seed = step_seed(self.seed, step, mesh.rank if mesh.parts > 1 else 0)
+        return self._place_batch(mesh.shard_batch(batch)), seed, mesh
 
     # ------------------------------------------------------------------
     def fit(self, restore_step: int = 0, max_steps: Optional[int] = None,
@@ -107,7 +140,8 @@ class Trainer:
         stop_at = min(self.total_step,
                       (restore_step + max_steps) if max_steps else self.total_step)
         log_path = os.path.join(self.cfg.train.path.log_path, "train")
-        os.makedirs(log_path, exist_ok=True)
+        if self.mesh.is_lead:
+            os.makedirs(log_path, exist_ok=True)
 
         # position the data stream where the original run was at restore_step
         skip = 0
@@ -139,6 +173,7 @@ class Trainer:
 
     def _fit_loop(self, step, stop_at, log_path, t_start, verbose, preempted, skip=0):
         k = self.state.grad_acc_step
+        lead = self.mesh.is_lead
         done = False
         while not done:
             for group in self.train_loader:
@@ -146,10 +181,10 @@ class Trainer:
                     if skip > 0:  # fast-forwarding to the restore position
                         skip -= 1
                         continue
-                    self.state, metrics = self.train_step_fn(
-                        self.state, self._place_batch(batch), step_seed(self.seed, step))
+                    self.state, metrics = self.train_step_fn(self.state,
+                                                             *self._train_batch(batch, step))
 
-                    if step % self.log_step == 0:
+                    if step % self.log_step == 0 and lead:
                         losses = [float(x) for x in (metrics.total, metrics.mel,
                                                      metrics.postnet_mel, metrics.pitch,
                                                      metrics.energy, metrics.duration)]
@@ -169,24 +204,31 @@ class Trainer:
                             rate = step / max(time.time() - t_start, 1e-9)
                             print(msg1 + msg2 + f" [{rate:.1f} steps/s]")
 
-                    if step % self.synth_step == 0:
+                    synth = step % self.synth_step == 0
+                    val = step % self.val_step == 0 and self.val_dataset is not None
+                    saved = step % self.save_step == 0
+                    if synth and lead:
                         try:
                             self.synth_sample(batch, step)
                         except Exception as e:  # synth is best-effort telemetry
                             print(f"synth_step failed: {e}")
 
-                    if step % self.val_step == 0 and self.val_dataset is not None:
+                    if val and lead:
                         self.evaluate(step)
 
-                    if step % self.save_step == 0:
+                    if saved and lead:
                         self.ckpt.save(step, self.state)
 
-                    if preempted["flag"]:
-                        if step % self.save_step != 0:  # not already saved above
+                    if self.mesh.any(preempted["flag"]):
+                        if not saved and lead:
                             self.ckpt.save(step, self.state)
-                        print(f"preempted: checkpoint saved at step {step}; "
-                              f"resume with --restore_step {step}")
+                        if lead:
+                            print(f"preempted: checkpoint saved at step {step}; "
+                                  f"resume with --restore_step {step}")
                         done = True
+                    if synth or val or saved or done:
+                        self.mesh.barrier()  # the others wait for rank 0's work
+                    if done:
                         break
 
                     if step >= stop_at:
@@ -351,7 +393,8 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
                      checkpoint: Optional[str] = None, seed: int = 0,
                      device: DeviceLike = None, use_flash: bool = True,
                      bf16: bool = False, val_split: str = "val.txt",
-                     param_storage: str = "f32", clf_featurization: str = "model") -> Trainer:
+                     param_storage: str = "f32", clf_featurization: str = "model",
+                     n_model: int = 1, mesh: Optional[DataMesh] = None) -> Trainer:
     """Datasets + model + optimizer + Trainer from a config dir (the CLI
     composition root; reference train.py:30-105), on `device` (the card when
     None). `bf16` runs forward and loss under bf16 autocast with f32
@@ -361,13 +404,17 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
     trains against a frozen GE2E discriminator, `ganlike` jointly with it
     (`clf_featurization`: see `make_train_step`). `checkpoint`, another run's
     checkpoint dir, warm-starts the FastSpeech2 weights only from its latest
-    step."""
+    step. `mesh`: this process's share of a data-parallel run (default: the
+    joined process group's, one device without one); `n_model` > 1 (tensor
+    parallelism) raises."""
+    check_model_axis(n_model)
     corpora = corpora or list(cfg.corpora)
     if not corpora:
         raise ValueError("no corpora configured (preprocess_<CORPUS>.yaml in the config dir)")
     dev = resolve_device(device)
 
     bs = cfg.train.optimizer.batch_size
+    mesh = mesh or DataMesh.from_process_group(bs)
     # padded lengths round up to 16 text / 64 mel frames, the buckets of
     # masg_tpu's batches, so both packages train on the same padded shapes
     buckets = dict(text_bucket=16, mel_bucket=64)
@@ -399,11 +446,14 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
                                cfg.model.transformer.encoder_hidden, param_storage)
     trainer = Trainer(cfg, state, loader, val_dataset=val_ds, seed=seed,
                       autocast_dtype=torch.bfloat16 if bf16 else None, use_clf=use_clf,
-                      discriminator=discriminator, clf_featurization=clf_featurization)
+                      discriminator=discriminator, clf_featurization=clf_featurization,
+                      mesh=mesh)
 
     if checkpoint is not None:
         other = CheckpointManager(checkpoint)
         trainer.state = other.restore_model_only(other.latest_step(), trainer.state)
     if restore_step:
         trainer.state = trainer.ckpt.restore(restore_step, trainer.state)
+    st = trainer.state  # every rank starts from rank 0's weights
+    mesh.replicate([*st.model.parameters(), *st.model.buffers(), *(st.master or [])])
     return trainer

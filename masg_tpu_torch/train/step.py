@@ -24,6 +24,20 @@ The JDIT teacher's dropout masks come from a `torch.Generator`: in a train
 step one seeded from the step's seed, in the eval step one seeded from 0 on
 every call (masg_tpu passes `PRNGKey(0)`, step.py:64-66), since its prenet
 dropout stays on in eval.
+
+Data parallelism: every step takes a `mesh` (`parallel.mesh.DataMesh`, for
+this batch: `DataMesh.for_batch`) and this rank's rows of the batch
+(`DataMesh.shard_batch`). Its losses are then this rank's parts of the
+global masked means and PostNet's BatchNorm takes the global statistics, so
+after `mesh.reduce_grads` sums the ranks' gradients (after every backward,
+before the clip; masg_tpu's sharded `jax.grad` reduces each micro-batch too,
+and StepMetrics.grad_norm is that micro-batch's global norm) every rank
+holds the one-device gradient and takes the one-device update. The metrics
+are the global losses. `--use_clf`/ganlike shuffle speakers over the whole
+batch: `shard_batch` turns a global `reorder` into the rows' shuffled
+speakers, and the trainer draws it on the host, the same on every rank.
+Dropout masks depend on the rank's seed, so with dropout on a
+data-parallel run is another draw than one device's.
 """
 
 from __future__ import annotations
@@ -43,7 +57,9 @@ from .state import TrainState
 
 # the speaker_meta column of the binary language label (reference train.py:185)
 LANG_META_INDEX = 2
-_INT_KEYS = ("speakers", "texts", "src_lens", "mel_lens", "durations", "accents", "reorder")
+_INT_KEYS = ("speakers", "texts", "src_lens", "mel_lens", "durations", "accents", "reorder",
+             "reorder_speakers")
+CHUNK_FRAMES = 150  # the discriminator's window (`chunk_mels`)
 _HOST_KEYS = ("ids", "raw_texts")
 
 
@@ -81,7 +97,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dty
 def _forward(model: FastSpeech2, batch: Dict[str, torch.Tensor], train: bool,
              speakers: Optional[torch.Tensor] = None,
              speaker_meta: Optional[torch.Tensor] = None,
-             teacher_gen: Optional[torch.Generator] = None) -> FS2Output:
+             teacher_gen: Optional[torch.Generator] = None, mesh=None) -> FS2Output:
     """Teacher-forced forward on a device batch (optionally for other
     speakers); with `teacher_gen` the JDIT teacher runs too."""
     model.train(train)
@@ -91,7 +107,24 @@ def _forward(model: FastSpeech2, batch: Dict[str, torch.Tensor], train: bool,
                  d_targets=batch["durations"], accents=batch.get("accents"),
                  speaker_meta=batch["speaker_meta"] if speaker_meta is None else speaker_meta,
                  mels=batch["mels"] if teacher_gen is not None else None,
-                 jdit_generator=teacher_gen)
+                 jdit_generator=teacher_gen, mesh=mesh if train else None)
+
+
+def draw_shuffle(batch: Dict[str, np.ndarray], seed: int, jitter: bool,
+                 max_frames: int) -> Dict[str, np.ndarray]:
+    """The host batch with the speaker shuffle of `--use_clf`/ganlike drawn
+    from `seed` (`reorder`, a permutation of the whole batch) and, with
+    `jitter`, ganlike's label jitter (`lang_jitter`, U[0, 1) per chunk of
+    each row; `max_frames`: the model's max_seq_len, which caps the mel the
+    chunks cut). The trainer draws them here so that every rank of a
+    data-parallel run shuffles the one global batch alike."""
+    rng = np.random.default_rng(seed)
+    b = len(batch["speakers"])
+    out = dict(batch, reorder=rng.permutation(b))
+    if jitter:
+        n_chunks = min(np.asarray(batch["mels"]).shape[1], max_frames) // CHUNK_FRAMES + 1
+        out["lang_jitter"] = rng.random(b * n_chunks)
+    return out
 
 
 def jdit_generator(device: torch.device, seed: int) -> torch.Generator:
@@ -105,18 +138,22 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
 
 
 def _losses(model, batch, train, pitch_feature_level, energy_feature_level,
-            use_speaker_prior, teacher_gen: Optional[torch.Generator] = None
+            use_speaker_prior, teacher_gen: Optional[torch.Generator] = None, mesh=None
             ) -> Tuple[torch.Tensor, FS2Losses, torch.Tensor, FS2Output]:
-    out = _forward(model, batch, train, teacher_gen=teacher_gen)
+    """(objective, losses, eloss, output); under `mesh`, this rank's parts."""
+    out = _forward(model, batch, train, teacher_gen=teacher_gen, mesh=mesh)
     losses = fastspeech2_loss(out, batch["mels"], batch["pitches"], batch["energies"],
-                              batch["durations"], pitch_feature_level, energy_feature_level)
+                              batch["durations"], pitch_feature_level, energy_feature_level,
+                              mesh)
     total = losses.total
     if out.mel_jdit is not None:
         # plain (unmasked) MSE, as in the reference (train.py:150-154)
-        total = total + torch.mean((out.mel_jdit - batch["mels"].to(out.mel_jdit.dtype)) ** 2)
+        se = (out.mel_jdit - batch["mels"].to(out.mel_jdit.dtype)) ** 2
+        parts = 1 if mesh is None else mesh.parts
+        total = total + (se.mean() if parts == 1 else se.sum() / (se.numel() * parts))
     eloss = torch.zeros((), dtype=total.dtype, device=total.device)
     if use_speaker_prior and out.speaker_gmm is not None:
-        eloss = speaker_prior_log_prob(out.speaker_emb, out.speaker_gmm)
+        eloss = speaker_prior_log_prob(out.speaker_emb, out.speaker_gmm, mesh)
         total = total - eloss  # maximise the log-likelihood (train.py:163-166)
     return total, losses, eloss, out
 
@@ -148,29 +185,34 @@ def ge2e_basis(n_mels: int = 80) -> np.ndarray:
 
 
 def _language_loss(model: FastSpeech2, discriminator: SpeechEmbedder,
-                   batch: Dict[str, torch.Tensor], basis: Optional[torch.Tensor], jitter: bool
-                   ) -> Tuple[torch.Tensor, int]:
-    """(BCE sum, number of chunks) of the discriminator on a second train-mode
-    forward for a speaker-shuffled batch (reference train.py:170-196,
-    train_ganlike.py:140-170). PostNet's BatchNorm statistics update again,
-    after the first forward's, as masg_tpu threads them. `reorder` and
-    `lang_jitter` come from the batch when given (parity tests inject the
-    reference's draws), else from torch's generator. The discriminator runs
+                   batch: Dict[str, torch.Tensor], basis: Optional[torch.Tensor], jitter: bool,
+                   mesh=None) -> Tuple[torch.Tensor, int]:
+    """(BCE sum, number of chunks of the global batch) of the discriminator on
+    a second train-mode forward for a speaker-shuffled batch (reference
+    train.py:170-196, train_ganlike.py:140-170). PostNet's BatchNorm
+    statistics update again, after the first forward's, as masg_tpu threads
+    them. The shuffle comes from the batch when given (`reorder`, or the
+    rows' `reorder_speakers`/`reorder_speaker_meta` of
+    `DataMesh.shard_batch`; parity tests inject the reference's draws), as
+    does `lang_jitter`, else from torch's generator. The discriminator runs
     in f32 outside autocast, on its own dtype, with its dropout off and its
-    LSTM in train mode (`discriminator_mode`)."""
+    LSTM in train mode (`discriminator_mode`). Under `mesh` the BCE sum is
+    this rank's rows' part."""
     bsz = batch["speakers"].shape[0]
-    reorder = batch.get("reorder")
-    if reorder is None:
-        reorder = torch.randperm(bsz, device=batch["speakers"].device)
-    meta = batch["speaker_meta"][reorder]
-    out_x = _forward(model, batch, True, speakers=batch["speakers"][reorder],
-                     speaker_meta=meta)
+    if "reorder_speakers" in batch:
+        speakers, meta = batch["reorder_speakers"], batch["reorder_speaker_meta"]
+    else:
+        reorder = batch.get("reorder")
+        if reorder is None:
+            reorder = torch.randperm(bsz, device=batch["speakers"].device)
+        speakers, meta = batch["speakers"][reorder], batch["speaker_meta"][reorder]
+    out_x = _forward(model, batch, True, speakers=speakers, speaker_meta=meta, mesh=mesh)
     mel = out_x.mel
     if basis is not None:
         # feature log-mel -> linear mel -> GE2E (fmin 55) mel basis -> log,
         # differentiable so the adversarial gradient reaches the model
         mel = torch.log(torch.clamp(torch.exp(mel) @ basis.to(mel.dtype).T, min=1e-5))
-    chunks = chunk_mels(mel, 150)  # (B * n_chunks, 150, n_mels)
+    chunks = chunk_mels(mel, CHUNK_FRAMES)  # (B * n_chunks, 150, n_mels)
     n_chunks = chunks.shape[0] // bsz
     w = discriminator.projection.linear_layer.weight
     langs = meta[:, LANG_META_INDEX].repeat_interleave(n_chunks).to(w.dtype)
@@ -180,13 +222,15 @@ def _language_loss(model: FastSpeech2, discriminator: SpeechEmbedder,
                          if j is None else j.to(langs.dtype))
     with torch.autocast(chunks.device.type, enabled=False):
         logits = discriminator_mode(discriminator)(chunks.to(w.dtype))["da_lang_logits"]
-        return bce_with_logits_sum(logits, langs), chunks.shape[0]
+        return (bce_with_logits_sum(logits, langs),
+                chunks.shape[0] * (1 if mesh is None else mesh.parts))
 
 
-def _update(state: TrainState, total: torch.Tensor) -> torch.Tensor:
-    """Backward of `total`, then (every `grad_acc_step` micro-batches) the
-    clip and one optimizer + schedule step. Returns the micro-batch's global
-    gradient norm before the clip."""
+def _update(state: TrainState, total: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Backward of `total` (with `mesh`, the ranks' gradients summed), then
+    (every `grad_acc_step` micro-batches) the clip and one optimizer +
+    schedule step. Returns the micro-batch's global gradient norm before the
+    clip."""
     params = state.params()
     k = state.grad_acc_step
     # the mean gradient of the micro-batches so far: this one's goes apart
@@ -197,6 +241,8 @@ def _update(state: TrainState, total: torch.Tensor) -> torch.Tensor:
     for p in params:  # one the forward did not reach (no accents) counts as zero
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        mesh.reduce_grads(params)
     # the clip's norm is this gradient's when it covers every parameter of a
     # single micro-batch (over the master it is the f32 norm of the same values)
     grad_norm = (None if state.discriminator is None and k == 1
@@ -230,9 +276,13 @@ def _update(state: TrainState, total: torch.Tensor) -> torch.Tensor:
     return grad_norm
 
 
-def _metrics(losses: FS2Losses, eloss, dloss, grad_norm) -> StepMetrics:
-    return StepMetrics(*(x.detach() for x in losses), speaker_prior=eloss.detach(),
-                       dloss=dloss.detach(), grad_norm=grad_norm.detach())
+def _metrics(losses: FS2Losses, eloss, dloss, grad_norm, mesh=None) -> StepMetrics:
+    """The step's metrics; under `mesh`, the global losses (the parts summed,
+    one all-reduce)."""
+    parts = [x.detach() for x in (*losses, eloss, dloss)]
+    if mesh is not None and mesh.parts > 1:
+        parts = list(mesh.sum(torch.stack(parts)).unbind())
+    return StepMetrics(*parts, grad_norm=grad_norm.detach())
 
 
 def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_level",
@@ -245,7 +295,7 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
                     autocast_dtype: Optional[torch.dtype] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor], Optional[int]],
                                   Tuple[TrainState, StepMetrics]]:
-    """The train step closure: `train_step(state, batch, seed)`.
+    """The train step closure: `train_step(state, batch, seed, mesh=None)`.
 
     `seed`, when given, seeds torch's generators first, so a step's dropout
     masks (and `--use_clf`'s speaker shuffle) are a function of the seed
@@ -275,29 +325,31 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
              if use_clf and clf_featurization == "ge2e" else None)
 
     def loss_fn(model: FastSpeech2, batch: Dict[str, torch.Tensor], step: int = 0,
-                seed: int = 0):
+                seed: int = 0, mesh=None):
         """(objective, losses, eloss, dloss, output) of the train-mode forward(s);
-        `seed` seeds the JDIT teacher's masks."""
+        `seed` seeds the JDIT teacher's masks; under `mesh`, this rank's parts."""
         gen = jdit_generator(device, seed) if use_jdit else None
         with _autocast(device, autocast_dtype):
             total, losses, eloss, out = _losses(model, batch, True, pitch_feature_level,
-                                                energy_feature_level, use_speaker_prior, gen)
+                                                energy_feature_level, use_speaker_prior, gen,
+                                                mesh)
             dloss = torch.zeros((), dtype=total.dtype, device=total.device)
             if use_clf:
                 dloss, n = _language_loss(model, discriminator, batch, basis,
-                                          jitter=False)
+                                          jitter=False, mesh=mesh)
                 total = total + dloss * (adversarial_schedule(step, total_step) * lambd / n)
         return total, losses, eloss, dloss, out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   seed: Optional[int] = None) -> Tuple[TrainState, StepMetrics]:
+                   seed: Optional[int] = None, mesh=None) -> Tuple[TrainState, StepMetrics]:
         if seed is not None:
             torch.manual_seed(seed)
         elif use_jdit:  # the teacher's generator needs a seed of its own
             seed = int(torch.empty((), dtype=torch.int64).random_())
-        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step, seed or 0)
-        grad_norm = _update(state, total)
-        return state, _metrics(losses, eloss, dloss, grad_norm)
+        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step, seed or 0,
+                                                 mesh)
+        grad_norm = _update(state, total, mesh)
+        return state, _metrics(losses, eloss, dloss, grad_norm, mesh)
 
     train_step.loss_fn = loss_fn  # exposed for parity tooling, as in masg_tpu
     return train_step
@@ -320,25 +372,27 @@ def make_ganlike_train_step(model: GANLike, pitch_feature_level: str = "phoneme_
     device = next(model.parameters()).device
 
     def loss_fn(model: GANLike, batch: Dict[str, torch.Tensor], step: int = 0,
-                grad_acc_step: int = 1):
-        """(objective, losses, eloss, dloss, output) of the train-mode forwards."""
+                grad_acc_step: int = 1, mesh=None):
+        """(objective, losses, eloss, dloss, output) of the train-mode
+        forwards; under `mesh`, this rank's parts."""
         with _autocast(device, autocast_dtype):
             total, losses, eloss, out = _losses(model.model, batch, True, pitch_feature_level,
-                                                energy_feature_level, use_speaker_prior)
+                                                energy_feature_level, use_speaker_prior,
+                                                mesh=mesh)
             dloss, n = _language_loss(model.model, model.discriminator, batch, None,
-                                      jitter=True)
+                                      jitter=True, mesh=mesh)
             total = total + dloss * (adversarial_schedule(step, total_step) * lambd
                                      * grad_acc_step / n)
         return total, losses, eloss, dloss, out
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   seed: Optional[int] = None) -> Tuple[TrainState, StepMetrics]:
+                   seed: Optional[int] = None, mesh=None) -> Tuple[TrainState, StepMetrics]:
         if seed is not None:
             torch.manual_seed(seed)
         total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step,
-                                                 state.grad_acc_step)
-        grad_norm = _update(state, total)
-        return state, _metrics(losses, eloss, dloss, grad_norm)
+                                                 state.grad_acc_step, mesh)
+        grad_norm = _update(state, total, mesh)
+        return state, _metrics(losses, eloss, dloss, grad_norm, mesh)
 
     train_step.loss_fn = loss_fn
     return train_step

@@ -292,7 +292,7 @@ def mel_kwargs(cfg: Dict) -> dict:
                 f_min=float(cfg.get("fmin", 0) or 0.0))
 
 
-def make_vocoder_train_step(cfg: Dict, from_mels: bool = False
+def make_vocoder_train_step(cfg: Dict, from_mels: bool = False, mesh=None
                             ) -> Callable[[VocoderTrainState, object],
                                           Tuple[VocoderTrainState, VocoderMetrics]]:
     """The GAN step: (state, batch) -> (state, metrics), updating the state in
@@ -302,6 +302,13 @@ def make_vocoder_train_step(cfg: Dict, from_mels: bool = False
     The discriminators run in train mode, so the MSD's spectral-norm scale
     power-iterates once on y and once on y_hat in each of the two losses:
     four iterations a step, upstream's and masg_tpu's cadence.
+
+    `mesh` (`parallel.mesh.DataMesh`): the batch is this rank's equal share
+    of the global one. Every loss is a mean over equal shards, so the mean
+    of the ranks' gradients is the one-device gradient: each backward is
+    followed by an averaging all-reduce, and the metrics are the ranks'
+    means. The spectral norm's power iteration reads only the weight, which
+    the ranks share, so (u, v) stay equal too.
     """
     kw = mel_kwargs(cfg)
     f_max_in = cfg.get("fmax", 8000)
@@ -333,6 +340,8 @@ def make_vocoder_train_step(cfg: Dict, from_mels: bool = False
         r, g, _, _ = discriminate(state, y, y_hat.detach())
         d_loss = discriminator_loss(r, g)
         d_loss.backward()
+        if mesh is not None:
+            mesh.reduce_grads(state.disc_params(), average=True)
         state.disc_opt.step()
 
         # the generator's, against the UPDATED discriminators; its loss
@@ -346,9 +355,14 @@ def make_vocoder_train_step(cfg: Dict, from_mels: bool = False
                                                                        **kw)))
         g_loss = adv + fm + 45.0 * mel_l1
         torch.autograd.backward(g_loss, inputs=list(state.generator.parameters()))
+        if mesh is not None:
+            mesh.reduce_grads(state.generator.parameters(), average=True)
         state.gen_opt.step()
         state.step += 1
-        return state, VocoderMetrics(*(x.detach() for x in (d_loss, g_loss, adv, fm, mel_l1)))
+        metrics = torch.stack([x.detach() for x in (d_loss, g_loss, adv, fm, mel_l1)])
+        if mesh is not None and mesh.parts > 1:
+            metrics = mesh.sum(metrics) / mesh.parts
+        return state, VocoderMetrics(*metrics.unbind())
 
     return train_step
 

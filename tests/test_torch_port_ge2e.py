@@ -469,7 +469,7 @@ def test_train_speech_embedder_cli_checkpoint_loads_in_masg_tpu(tmp_path):
     with pytest.raises(ValueError, match="torch format"):
         load_ge2e_checkpoint(str(out))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        main(args + ["--n_devices", "2"])
+        main(args + ["--n_model", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args[:-2])

@@ -68,7 +68,8 @@ def test_every_module_imports_with_jax_and_masg_tpu_blocked():
                 "preprocessor.textgrid", "preprocessor.preprocessor", "models.jdit",
                 "models.melgan", "preprocessor.alignments", "cli.retrieve", "cli.gather",
                 "cli.make_config", "cli.prepare_alignments", "cli.graph2phone_lab",
-                "cli.jvs_speakers"):
+                "cli.jvs_speakers", "parallel.distributed", "parallel.mesh",
+                "utils.profiling", "utils.mcd", "compat.torch_order"):
         assert f"masg_tpu_torch.{sub}" in names.split(), sub
 
 
@@ -164,8 +165,9 @@ def test_cli_device_flag_defaults_to_cuda(tmp_path):
 
 
 def test_unported_flags_raise_not_implemented():
-    """JDIT and MelGAN (queue 1 item 11) now build; the flags of item 12
-    (parallelism) still raise."""
+    """JDIT and MelGAN (queue 1 item 11) now build, and so does data
+    parallelism (item 12: `--n_devices`, `--multihost`, `--data_parallel`);
+    tensor parallelism (`--n_model > 1`, the rest of item 12) still raises."""
     from masg_tpu_torch.infer.vocoder import get_vocoder
     from masg_tpu_torch.models import FastSpeech2
     from masg_tpu_torch.models.melgan import MelGANGenerator
@@ -177,16 +179,15 @@ def test_unported_flags_raise_not_implemented():
     voc = get_vocoder(cfg.model, device="cpu")
     assert isinstance(voc.generator, MelGANGenerator)
 
-    from masg_tpu_torch.cli.serve import main as serve
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        serve(["-c", "unused", "--device", "cpu", "--data_parallel"])
-
+    from masg_tpu_torch.cli.train_speech_embedder import main as train_speech_embedder
     from masg_tpu_torch.cli.train_vocoder import main as train_vocoder
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
         train_vocoder(["--wav_dir", "unused", "--out", "unused", "--device", "cpu",
-                       "--n_devices", "2"])
+                       "--n_devices", "2", "--n_model", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        train_speech_embedder(["--data_path", "unused", "--out_dir", "unused", "--device",
+                               "cpu", "--n_model", "2"])
 
 
 def test_kernel_loader_raises_without_nvcc():

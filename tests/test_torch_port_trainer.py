@@ -176,8 +176,8 @@ def test_sigterm_saves_and_returns(corpus):
     trainer = build_experiment(cfg, device="cpu")
     inner = trainer.train_step_fn
 
-    def step_then_signal(state, batch, seed):
-        out = inner(state, batch, seed)
+    def step_then_signal(state, *args):
+        out = inner(state, *args)
         if out[0].step == 2:
             signal.raise_signal(signal.SIGTERM)
         return out
