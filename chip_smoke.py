@@ -123,7 +123,18 @@ Phases (any failure exits non-zero; nothing is caught):
    within 2 LSB), RTF and vocoder ms (medians of 3, in turns),
    `vocode_streaming` of one utterance against its one-shot vocode, one
    `ServingEngine` dispatch with the MelGAN vocoder (K1 10, K4 0);
-17. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+17. [dp] (inside 10's directory): two spawned gloo ranks sharing the card
+   against one: the train variants, GE2E and the V1 GAN; a 2-replica
+   serving engine; NCCL at world size 1 (`cli.train --multihost`);
+18. [tp]: four spawned gloo ranks sharing the card: rank 0's one-rank
+   references, then the flagship train step on a 1 x 2 (data, model) mesh
+   (plain with grad_acc_step 2, `--use_clf`, ganlike; 3 steps) and on 2 x 2
+   (plain, 2 steps): gathered gradients, losses, launches per rank per
+   step, parameters and peak memory per rank, ms and bytes all-reduced per
+   step; float64 gradients on the plain path; dropout on (the replicated
+   tensors' sha256 on both model ranks); a 1 x 2 checkpoint restored on one
+   rank; then K1-K3 at 2 heads and at a rank's 1 head;
+19. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
    step; `serve`: K1's and K4's launches under the 32 served requests and
@@ -132,8 +143,9 @@ Phases (any failure exits non-zero; nothing is caught):
    `jdit`: the same per float32 `use_jdit` step; `melgan`: K1's and K4's
    launches per MelGAN text->wav; `dump_mels` on K1: launches, batches and
    device time per batch; `trained_generator` on K4: launches per forward
-   of the exported generator);
-18. the `{"ok": true, ...}` line, last.
+   of the exported generator; `dp_train`, `dp_serve`, `tp_train`: launches
+   per rank and ms per step of [dp] and [tp]);
+20. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -184,6 +196,16 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - MelGAN text->wav float32: mel_len identical, wav within 2 LSB (the main
   path's bar); streamed within 1 LSB of one-shot (masg_tpu's streaming
   bar).
+- tp, 1 x 2 and 2 x 2 vs one rank, float32: losses and grad_norm within
+  1e-5 relative; each gathered gradient within 1e-2 of its tensor's largest
+  |entry| plus 5e-6 (a gradient counted M times is off by >= 50 %; a ReLU
+  whose f32 input rounds across 0 in a 512-channel conv moved a tensor by
+  up to 5.5e-3; masg_tpu's dp bar, rtol 1e-4 / atol 5e-6, is printed beside
+  it); float64 on the plain path: every gathered gradient within 1e-10 of
+  its tensor's largest |entry| plus 1e-15; the dropout-on replicas
+  bit-identical; the restored checkpoint's step within 1e-5; K1-K3 at a
+  rank's 1 head (B = 16 and both B = 8 halves) at the float32 bars of
+  [K1] and [K2/K3] (2e-5; 5e-3) against their plain versions.
 - preprocess, card vs CPU: splits, files, duration and pitch identical;
   the mel (linear, exp of the stored log-mel) and energy within 1e-5 of
   each file's peak, the log-mel within 1e-3 (at near-silent bins, log-mel
@@ -890,16 +912,17 @@ def flash_bwd_work(lengths, t, elem_bytes):
     return k2, k3
 
 
-def bwd_inputs(t, dtype, lens, gen):
+def bwd_inputs(t, dtype, lens, gen, h=H):
     """q, k, v, do (zero at query rows >= len), K1's lse, delta, and the
-    (B, 1, T, 1) valid-row mask."""
+    (B, 1, T, 1) valid-row mask, with a row per length and `h` heads."""
     import torch
 
     from masg_tpu_torch.ops.attention import flash_attention
 
-    q, k, v = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE, dtype) for _ in range(3))
+    b = len(lens)
+    q, k, v = (torch.randn(b, h, t, DH, generator=gen).to(DEVICE, dtype) for _ in range(3))
     valid = (torch.arange(t, device=DEVICE)[None, :] < lens[:, None])[:, None, :, None]
-    do = (torch.randn(B, H, t, DH, generator=gen).to(DEVICE) * valid).to(dtype)
+    do = (torch.randn(b, h, t, DH, generator=gen).to(DEVICE) * valid).to(dtype)
     o, lse = flash_attention(q, k, v, lens, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
     return q, k, v, do, lse, delta, valid
@@ -3245,6 +3268,425 @@ def dp_path(smi, pre_dir, root):
     return {"train": fields, "serve_dispatch_B8": serve}
 
 
+# ---------------------------------------------------------------------------
+# [tp]: tensor parallelism (the model axis) over torch.distributed
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 4  # four ranks sharing the one card over gloo (CUDA tensors)
+TP_GRAD_REL = 1e-2  # [tp]'s f32 gradient bar, of each tensor's largest entry (+ 5e-6)
+
+
+def _tp_state(variant, acc, disc, mesh=None, dropout=False, dtype=None, use_flash=True):
+    """A flagship train state on the card from seed 0 (on `mesh`'s model
+    axis: this rank's shard of those weights), the kernel path unless
+    `use_flash` is False, in `dtype` (default f32), and its step."""
+    import copy
+
+    import torch
+
+    from masg_tpu_torch.models import FastSpeech2
+    from masg_tpu_torch.models.ganlike import GANLike
+    from masg_tpu_torch.train.state import create_train_state
+    from masg_tpu_torch.train.step import make_ganlike_train_step, make_train_step
+
+    cfg = flagship_config()
+    cfg.train.optimizer.grad_acc_step = acc
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = FastSpeech2.from_config(cfg, use_flash=use_flash, mesh=mesh)
+    if not dropout:
+        _no_dropout(model)
+    model.to(DEVICE, dtype)
+    d_model, total = cfg.model.transformer.encoder_hidden, cfg.train.step.total_step
+    if variant == "plain":
+        return (create_train_state(model, cfg.train.optimizer, d_model),
+                make_train_step(model, total_step=total))
+    disc = copy.deepcopy(disc).to(DEVICE)
+    if variant == "ganlike":
+        gl = GANLike(model, disc)
+        return (create_train_state(gl, cfg.train.optimizer, d_model),
+                make_ganlike_train_step(gl, total_step=total))
+    return (create_train_state(model, cfg.train.optimizer, d_model),
+            make_train_step(model, use_clf=True, discriminator=disc, total_step=total))
+
+
+def _whole_grads(st):
+    """The state's gradients, each split one gathered over the model group."""
+    from masg_tpu_torch.parallel.mesh import sharded_names, unshard_tensor
+
+    axis = st.model_axis
+    names = sharded_names(st.model) if axis is not None else {}
+    out = []
+    for n, p in st.model.named_parameters():
+        if not p.requires_grad:
+            continue
+        g = p.grad if p.grad is not None else p.detach() * 0
+        out.append(unshard_tensor(g, names[n], axis) if n in names else g.detach().clone())
+    return out
+
+
+def _replicated_digest(st):
+    """A digest of this rank's replicated parameters and buffers, bit for bit."""
+    import hashlib
+
+    from masg_tpu_torch.parallel.mesh import sharded_names
+
+    names = sharded_names(st.model) if st.model_axis is not None else {}
+    h = hashlib.sha256()
+    for k, v in st.model.state_dict().items():
+        if k not in names:
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _AllReduceBytes:
+    """Counts the bytes `torch.distributed.all_reduce` moves in this process."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.inner, self.bytes = dist.all_reduce, 0
+        dist.all_reduce = self
+
+    def __call__(self, t, *args, **kw):
+        self.bytes += t.numel() * t.element_size()
+        return self.inner(t, *args, **kw)
+
+
+def _tp_run(st, step, batch, mesh, n, first=0):
+    """`n` train steps: [losses + grad_norm per step]."""
+    import torch
+
+    traj = []
+    for i in range(n):
+        st, m = step(st, batch, first + i, mesh)
+        traj.append([float(getattr(m, k)) for k in DP_STEP_METRICS + ("grad_norm",)])
+    torch.cuda.synchronize()
+    return traj
+
+
+def _traj_rel(got, want):
+    """(largest relative loss error, largest relative grad_norm error)."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    return float(rel[:, :-1][want[:, :-1] != 0].max()), float(rel[:, -1].max())
+
+
+def _grad_report(got, want, names):
+    """The gathered gradients against one rank's: the mesh bar's excess, its
+    worst tensor and the share of entries outside it (max(|err| - 1e-4 |ref|)
+    <= 5e-6), and per tensor max|err| - TP_GRAD_REL max|ref| (a tensor's
+    gradient counted M times is off by >= 50 % of its largest entry; a ReLU
+    whose f32 input rounds to the other side of 0 moved a tensor by up to
+    5.5e-3 of it)."""
+    mesh = [((g - r).abs() - 1e-4 * r.abs()) for g, r in zip(got, want)]
+    worst = max(range(len(mesh)), key=lambda i: float(mesh[i].max()))
+    outside = sum(int((m > 5e-6).sum()) for m in mesh) / sum(m.numel() for m in mesh)
+    excess = [float((g - r).abs().max() - TP_GRAD_REL * r.abs().max())
+              for g, r in zip(got, want)]
+    w = max(range(len(excess)), key=excess.__getitem__)
+    return {"grad_excess": float(mesh[worst].max()), "grad_worst": names[worst],
+            "grad_outside": outside, "grad_tensor_excess": excess[w], "grad_tensor_worst": names[w]}
+
+
+def _f64_grads(rank, mesh):
+    """[tp]'s float64 check on the plain path: the gathered gradients of one
+    backward of the flagship plain step on `mesh` (None: one rank)."""
+    import torch
+
+    from masg_tpu_torch.train.step import batch_to_device
+
+    st, step = _tp_state("plain", 1, None, mesh, dtype=torch.float64, use_flash=False)
+    batch = batch_to_device(example_inputs(B=B, L=L, T=T_MEL), DEVICE, torch.float64)
+    step.loss_fn(st.model, batch, 0, mesh=mesh)[0].backward()
+    grads = _whole_grads(st)
+    del st, step
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _tp_measure(st, step, batch, mesh, counter, n_steps):
+    """On the ranks of a mesh: the gathered gradients of one backward, the
+    metrics of `n_steps` steps, K1-K3 launches per step, ms per step and
+    bytes all-reduced per step (mean of 2 more), parameters held and the
+    peak memory of this process."""
+    import torch
+
+    out = {"held": sum(p.numel() for p in st.model.parameters())}
+    step.loss_fn(st.model, batch, 0, mesh=mesh)[0].backward()
+    mesh.reduce_grads(st.params())
+    out["grads"] = [g.cpu() for g in _whole_grads(st)]  # off the card: rank 0 keeps 4 sets
+    out["names"] = [n for n, p in st.model.named_parameters() if p.requires_grad]
+    for p in st.params():
+        p.grad = None
+    reset_counts()
+    out["traj"] = _tp_run(st, step, batch, mesh, n_steps)
+    out["launches_per_step"] = {k: v / n_steps for k, v in read_counts().items()}
+    counter.bytes = 0
+    t0 = time.perf_counter()
+    _tp_run(st, step, batch, mesh, 2, first=n_steps)
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    out["bytes_per_step"] = counter.bytes / 2
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def tp_worker(rank, world):
+    """A rank of [tp]'s four worker processes (gloo, CUDA tensors on the one
+    card): the one-rank references on rank 0, then 1 x 2 (ranks 0, 1) and
+    2 x 2 (all four) against them, dropout on, and a checkpoint. Returns
+    host data only."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from masg_tpu_torch.core.checkpoint import CheckpointManager
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+    from masg_tpu_torch.parallel.mesh import DataMesh
+    from masg_tpu_torch.train.step import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    counter = _AllReduceBytes()
+    pair_group = dist.new_group([0, 1])  # every rank creates every group
+    mesh22 = DataMesh.from_process_group(B, n_model=2)
+    mesh12 = DataMesh(n_model=2, model_rank=rank, model_group=pair_group) if rank < 2 else None
+    torch.manual_seed(1)
+    disc = SpeechEmbedder()
+    variants = (("plain", 2), ("use_clf", 1), ("ganlike", 1))
+    batches = {v: batch_to_device(adversarial_batch() if v != "plain"
+                                  else example_inputs(B=B, L=L, T=T_MEL), DEVICE, torch.float32)
+               for v in ("plain", "use_clf")}
+    batches["ganlike"] = batches["use_clf"]
+    out = {"train": {}}
+
+    # float64 on the plain path, 1 x 2: the f/g/gather algebra at rounding level
+    ref64 = _f64_grads(rank, None) if rank == 0 else None
+    dist.barrier()
+    if mesh12 is not None:
+        got64 = _f64_grads(rank, mesh12)
+        if rank == 0:
+            out["f64_grad"] = max(float((g - r).abs().max() - 1e-10 * r.abs().max())
+                                  for g, r in zip(got64, ref64))
+            out["f64_tensors"] = len(ref64)
+        del got64
+    del ref64
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the one-rank references
+    refs = {}
+    if rank == 0:
+        for variant, acc in variants + (("plain", 1),):
+            st, step = _tp_state(variant, acc, disc)
+            torch.cuda.reset_peak_memory_stats()
+            refs[variant, acc] = _tp_measure(st, step, batches[variant], DataMesh(), counter, 3)
+            del st, step
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 1 x 2 on ranks 0 and 1 (2 and 3 wait)
+    for variant, acc in variants:
+        res = None
+        if mesh12 is not None:
+            st, step = _tp_state(variant, acc, disc, mesh12)
+            torch.cuda.reset_peak_memory_stats()
+            res = _tp_measure(st, step, batches[variant], mesh12, counter, 3)
+            del st, step
+            torch.cuda.empty_cache()
+        out["train"][f"1x2 {variant}/{acc}"] = _tp_compare(rank, res, refs.get((variant, acc)))
+        dist.barrier()
+
+    # 2 x 2 on all four: each data rank its 8 rows
+    mesh = mesh22.for_batch(B)
+    mine = batch_to_device(mesh.shard_batch(example_inputs(B=B, L=L, T=T_MEL)), DEVICE,
+                           torch.float32)
+    st, step = _tp_state("plain", 1, disc, mesh22)
+    torch.cuda.reset_peak_memory_stats()
+    res = _tp_measure(st, step, mine, mesh, counter, 2)
+    del st, step
+    torch.cuda.empty_cache()
+    ref = refs.get(("plain", 1))
+    if ref is not None:
+        ref = dict(ref, traj=ref["traj"][:2])
+    out["train"]["2x2 plain/1"] = _tp_compare(rank, res, ref)
+    dist.barrier()
+
+    # dropout on, 1 x 2: the replicated tensors of the two model ranks
+    if mesh12 is not None:
+        st, step = _tp_state("plain", 1, disc, mesh12, dropout=True)
+        for i in range(3):
+            st, _ = step(st, batches["plain"], 100 + i, mesh12)
+        torch.cuda.synchronize()
+        out["dropout_digest"] = _replicated_digest(st)
+        del st, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # a 1 x 2 checkpoint at step 2, restored on rank 0 alone for step 3
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(REPO, "build")) \
+        if rank == 0 else None
+    box = [root]
+    dist.broadcast_object_list(box, src=0)
+    if mesh12 is not None:
+        st, step = _tp_state("plain", 1, disc, mesh12)
+        traj = _tp_run(st, step, batches["plain"], mesh12, 2)
+        CheckpointManager(box[0]).save(2, st)
+        out["ckpt_uninterrupted"] = traj + _tp_run(st, step, batches["plain"], mesh12, 1, 2)
+        del st, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        st, step = _tp_state("plain", 1, disc)
+        st = CheckpointManager(root).restore(2, st)
+        out["ckpt_restored"] = _tp_run(st, step, batches["plain"], None, 1, 2)
+        del st, step
+        shutil.rmtree(root)
+    return out
+
+
+def _tp_compare(rank, res, ref):
+    """Rank 0: its mesh result against the one-rank reference (the gathered
+    gradients, the losses); every rank: its launches, parameters, memory."""
+    if res is None:
+        return None
+    out = {k: res[k] for k in ("held", "launches_per_step", "ms", "bytes_per_step",
+                               "max_memory_gib", "traj")}
+    if rank == 0:
+        out.update(_grad_report(res["grads"], ref["grads"], res["names"]))
+        out["grad_tensors"] = len(ref["grads"])
+        out["loss_rel"], out["grad_norm_rel"] = _traj_rel(res["traj"], ref["traj"])
+        out["ms_1rank"] = ref["ms"]
+        out["held_1rank"] = ref["held"]
+        out["max_memory_gib_1rank"] = ref["max_memory_gib"]
+    return out
+
+
+def tp_kernel_times():
+    """K1-K3 (float32) per train step at the flagship's shapes: the 2 heads
+    of one device (B = 16), and a rank's 1 head on 1 x 2 (B = 16) and on
+    2 x 2 (B = 8, each data rank's rows). 4 encoder calls (T = L) and 6
+    decoder calls (T = T_mel), each key length from [train]'s batch. Every
+    1-head shape is first held against the plain versions on its inputs at
+    [K1] and [K2/K3] float32 bars (2e-5; 5e-3 with dK/dV exactly 0 past
+    the length). {kernel: {"H2_ms", "H1_ms", "H1_B8_ms", "H1_max_abs_err"}},
+    CUDA events; the B = 8 time is data rank 0's rows."""
+    import torch
+
+    from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
+                                              flash_attention_dq, flash_attention_plain)
+
+    batch = example_inputs(B=B, L=L, T=T_MEL)
+    gen = torch.Generator().manual_seed(3)
+    out = {k: {"H2_ms": 0.0, "H1_ms": 0.0, "H1_B8_ms": 0.0, "H1_max_abs_err": 0.0}
+           for k in ("K1", "K2", "K3")}
+    for t, lens, calls in ((L, batch["src_lens"], 4), (T_MEL, batch["mel_lens"], 6)):
+        lens_all = torch.as_tensor(lens, device=DEVICE)
+        for key, h, rows in (("H2_ms", 2, slice(0, B)), ("H1_ms", 1, slice(0, B)),
+                             ("H1_B8_ms", 1, slice(0, B // 2)), (None, 1, slice(B // 2, B))):
+            lens_t = lens_all[rows].contiguous()
+            q, k, v, do, lse, delta, valid = bwd_inputs(t, torch.float32, lens_t, gen, h)
+            if h == 1:
+                o_ref, _ = flash_attention_plain(q, k, v, lens_t)
+                err = (flash_attention(q, k, v, lens_t) - o_ref).abs().max().item()
+                assert err <= 2e-5, (t, rows, err)
+                errs = bwd_errors(q, k, v, do, lse, delta, lens_t, valid, torch.float32)
+                for name, e in (("K1", err), ("K2", errs[0]), ("K3", max(errs[1:]))):
+                    out[name]["H1_max_abs_err"] = max(out[name]["H1_max_abs_err"], e)
+            if key is None:
+                continue
+            for name, fn in (("K1", lambda: flash_attention(q, k, v, lens_t)),
+                             ("K2", lambda: flash_attention_dq(q, k, v, do, lse, delta, lens_t)),
+                             ("K3", lambda: flash_attention_dkv(q, k, v, do, lse, delta,
+                                                                lens_t))):
+                out[name][key] += calls * cuda_ms(fn, 10)
+    return out
+
+
+def tp_path(smi):
+    """Phase [tp]: four worker processes (`parallel.distributed.spawn`, gloo
+    with CUDA tensors, all on cuda:0) run the flagship FastSpeech2 train
+    step on 1 x 2 and 2 x 2 (data, model) meshes against one rank, dropout
+    on, and a checkpoint; then K1-K3 at a rank's share of the heads here.
+    The ranks share one card, so no speed-up is expected: the times show
+    the cost of the collectives. Returns the kernels-line fields."""
+    import torch
+
+    from masg_tpu_torch.parallel.distributed import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(tp_worker, TP_WORLD, backend="gloo", timeout_s=600)
+    spent = time.perf_counter() - t0
+    r0 = ranks[0]
+    t = flagship_config().model.transformer
+    fields = {}
+    for name, res in r0["train"].items():
+        shape, va = name.split(" ")
+        variant = va.split("/")[0]
+        per_k = (t.encoder_layer + t.decoder_layer) * (2 if variant != "plain" else 1)
+        on = [r["train"][name] for r in ranks if r["train"][name] is not None]
+        assert len(on) == (2 if shape == "1x2" else 4), (name, len(on))
+        for i, r in enumerate(on):
+            lp = r["launches_per_step"]
+            assert lp == {"K1": per_k, "K2": per_k, "K3": per_k, "K4": 0}, (name, i, lp)
+        held = [r["held"] for r in on]
+        print(f"[tp] train {va} on {shape} (data x model), flagship B={B} L={L} "
+              f"T_mel={T_MEL} f32 (TF32 off), kernel path, dropout off, ranks on cuda:0 "
+              f"(gloo) vs 1: gathered gradients over {res['grad_tensors']} tensors: "
+              f"max(|err| - 1e-4 |ref|) {res['grad_excess']:.3g} ({res['grad_worst']}; "
+              f"masg_tpu's dp bar 5e-6), {res['grad_outside']:.3g} of the entries past it "
+              f"(f32 ReLU flips), per tensor max|err| - {TP_GRAD_REL:g} max|ref| "
+              f"{res['grad_tensor_excess']:.3g} ({res['grad_tensor_worst']}; tol 5e-6); "
+              f"losses of {len(res['traj'])} steps max relative err {res['loss_rel']:.3g} "
+              f"(tol 1e-5), grad_norm {res['grad_norm_rel']:.3g} (tol 1e-5); launches per "
+              f"rank per "
+              f"step {on[0]['launches_per_step']}; parameters per rank {held} of "
+              f"{res['held_1rank']}; peak memory per rank "
+              f"{[round(r['max_memory_gib'], 3) for r in on]} GiB (1 rank "
+              f"{res['max_memory_gib_1rank']:.3f}); {res['ms_1rank']:.1f} ms per step on 1 "
+              f"rank, {res['ms']:.1f} ms on {shape} sharing the card (no speed-up expected), "
+              f"{res['bytes_per_step'] / 1e9:.3f} GB all-reduced per step by rank 0; on {smi}")
+        assert res["grad_tensor_excess"] <= 5e-6 and res["loss_rel"] <= 1e-5, (name, res)
+        assert res["grad_norm_rel"] <= 1e-5, (name, res)
+        assert max(held) < res["held_1rank"], held
+        fields[name] = {"launches_per_rank_per_step": per_k, "ms_1rank": res["ms_1rank"],
+                        "ms_one_card": res["ms"], "bytes_all_reduced_per_step":
+                        res["bytes_per_step"], "parameters_per_rank": held,
+                        "max_memory_gib_per_rank": [r["max_memory_gib"] for r in on]}
+    print(f"[tp] float64, plain path, 1 x 2 vs 1 rank at the flagship width: gathered "
+          f"gradients of one backward, per tensor max|err| - 1e-10 max|ref| "
+          f"{r0['f64_grad']:.3g} over {r0['f64_tensors']} tensors (tol 1e-15)")
+    assert r0["f64_grad"] <= 1e-15, r0["f64_grad"]
+    digests = [r["dropout_digest"] for r in ranks[:2]]
+    assert digests[0] == digests[1], digests
+    print(f"[tp] dropout on, 1 x 2, 3 steps: the replicated parameters and buffers of the "
+          f"two model ranks are bit-identical (sha256 {digests[0][:16]}...)")
+    import numpy as np
+
+    got, want = np.asarray(r0["ckpt_restored"]), np.asarray(r0["ckpt_uninterrupted"][2:])
+    rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30))[:, :-1].max())
+    print(f"[tp] checkpoint: a 1 x 2 run's step-2 checkpoint restored on one rank takes "
+          f"step 3 with losses max relative err {rel:.3g} against the 1 x 2 run's own "
+          f"step 3 (tol 1e-5)")
+    assert rel <= 1e-5, (got, want)
+    times = tp_kernel_times()
+    for name, tm in times.items():
+        print(f"[tp] {name} f32 per train step (4 encoder + 6 decoder calls): 2 heads "
+              f"{tm['H2_ms']:.3f} ms (one device, B={B}), 1 head {tm['H1_ms']:.3f} ms (a "
+              f"rank of 1 x 2, B={B}), 1 head {tm['H1_B8_ms']:.3f} ms (a rank of 2 x 2, "
+              f"B={B // 2}); at 1 head (B={B} and both halves) vs the plain version max abs "
+              f"err {tm['H1_max_abs_err']:.3g} (tol {2e-5 if name == 'K1' else 5e-3:g}); "
+              f"on {smi}")
+    print(f"[tp] worker quartet: {spent:.1f} s including start-up")
+    return {"train": fields, "kernel_ms_per_step": times}
+
+
 def main() -> int:
     import torch
 
@@ -3288,6 +3730,7 @@ def main() -> int:
         dump, mel_dir = dump_mels_path(smi, cfg_dir, root)
         finetune = vocoder_finetune_path(smi, root, mel_dir)
         dp = dp_path(smi, os.path.join(root, "trainer", "pre"), root)
+        tp = tp_path(smi)
     finally:
         shutil.rmtree(root)
     train_entries, k1_train = train_kernel_times(train, smi)
@@ -3313,6 +3756,8 @@ def main() -> int:
         e["melgan"] = {"path": "text->wav, MelGAN, float32", "launches_per_forward": melgan[name]}
     for e in entries[:3]:  # [dp]: per rank per step, 2 ranks sharing the card
         e["dp_train"] = dp["train"]
+    for e, name in zip(entries[:3], ("K1", "K2", "K3")):  # [tp]: per rank, sharing the card
+        e["tp_train"] = dict(tp["train"], kernel_ms_per_train_step=tp["kernel_ms_per_step"][name])
     for e, name in zip((entries[0], entries[3]), ("K1", "K4")):
         e["dp_serve"] = {"path": "ServingEngine(devices=[cuda:0, cuda:0]), B=8, bucket 128",
                          "launches_per_dispatch": dp["serve_dispatch_B8"][name]}

@@ -4,7 +4,7 @@
         [--checkpoint p] [--use_clf [--clf_featurization model|ge2e]]
         [--corpus A B ...] [--max_steps N] [--seed S] [--bf16]
         [--param_storage f32|bf16|bf16_moments] [--device cuda|cpu] [--no-use_flash]
-        [--n_devices N] [--n_model 1] [--multihost]
+        [--n_devices N] [--n_model M] [--multihost]
 
 masg_tpu's flags, with `--flash` become `--use_flash/--no-use_flash` (on by
 default: attention through kernels K1-K3) and `--device` added (default
@@ -14,12 +14,14 @@ moments) in bf16 with an f32 master copy, so the model computes in bf16.
 `--use_clf` trains against the frozen GE2E discriminator of train.yaml's
 `discriminator_path` (a checkpoint of `cli.train_speech_embedder`, or of
 the reference, in the reference's torch format), or a random one when none
-is set. masg_tpu's mesh flags train data-parallel (`parallel/`): `--n_devices
-N` spawns one process per card (N capped at the cards present; the data axis
-is `data_parallel_size(batch_size, N)`), `--multihost` joins the process
-group the environment names (masg_tpu's MASG_* names or torchrun's) and
-trains on card LOCAL_RANK; `--n_model` > 1 (tensor parallelism) raises.
-`--rng_impl` (a TPU generator) has no counterpart.
+is set. masg_tpu's mesh flags train over a (data, model) mesh of processes
+(`parallel/`): `--n_model M` is the tensor-parallel axis (Megatron-style
+shards of the FFT blocks and PostNet, `parallel/mesh.py:PARAM_RULES`),
+`--n_devices N` (default M) spawns one process per card (N capped at the
+cards present; the data axis is `data_parallel_size(batch_size, N // M)`),
+`--multihost` joins the process group the environment names (masg_tpu's
+MASG_* names or torchrun's; world size n_data x M) and trains on card
+LOCAL_RANK. `--rng_impl` (a TPU generator) has no counterpart.
 """
 
 from __future__ import annotations
@@ -67,6 +69,21 @@ def main(argv=None):
     return launch_data_parallel(run, args, cfg.train.optimizer.batch_size)
 
 
+def parameter_counts(model) -> str:
+    """The parameter count of `model`, and on a model axis the count each
+    rank holds."""
+    from ..parallel.mesh import sharded_names
+
+    held = sum(p.numel() for p in model.parameters())
+    axis = getattr(model, "model_axis", None)
+    if axis is None:
+        return str(held)
+    split = sharded_names(model)
+    whole = held + sum(p.numel() for n, p in model.named_parameters()
+                       if n in split) * (axis.size - 1)
+    return f"{whole} ({held} on each of {axis.size} model ranks)"
+
+
 def run(args, device):
     """Train on `device` (this process's share when a process group is joined)."""
     from ..core.config import load_config_dir
@@ -77,10 +94,10 @@ def run(args, device):
                                checkpoint=args.checkpoint, seed=args.seed, device=device,
                                use_flash=args.use_flash, bf16=args.bf16,
                                param_storage=args.param_storage,
-                               clf_featurization=args.clf_featurization)
+                               clf_featurization=args.clf_featurization,
+                               n_model=args.n_model)
     if trainer.mesh.is_lead:
-        n_params = sum(p.numel() for p in trainer.model.parameters())
-        print(f"Number of FastSpeech2 Parameters: {n_params}")
+        print(f"Number of FastSpeech2 Parameters: {parameter_counts(trainer.model)}")
     return trainer.fit(restore_step=args.restore_step, max_steps=args.max_steps)
 
 

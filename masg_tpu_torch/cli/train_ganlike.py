@@ -2,14 +2,15 @@
 
     python -m masg_tpu_torch.cli.train_ganlike -c <config_dir> [--restore_step N]
         [--checkpoint p] [--corpus A B ...] [--max_steps N] [--seed S] [--bf16]
-        [--device cuda|cpu] [--no-use_flash] [--n_devices N] [--n_model 1] [--multihost]
+        [--device cuda|cpu] [--no-use_flash] [--n_devices N] [--n_model M] [--multihost]
 
 The reference's `python train_ganlike.py -c <config_dir>` (train_ganlike.py:
 268-315): FastSpeech2 and the GE2E language discriminator (train.yaml's
 `discriminator_path`, or a random one) train jointly under one optimizer
 against jittered language labels. Checkpoints hold
 `{"model", "discriminator", "optimizer"}`. The flags are `cli.train`'s,
-the data-parallel ones included.
+the mesh ones included (`--n_model M` splits the FastSpeech2; the
+discriminator is replicated).
 """
 
 from __future__ import annotations
@@ -46,14 +47,15 @@ def run(args, device):
     """Train on `device` (this process's share when a process group is joined)."""
     from ..core.config import load_config_dir
     from ..train.loop import build_experiment
+    from .train import parameter_counts
 
     trainer = build_experiment(load_config_dir(args.config), corpora=args.corpus,
                                ganlike=True, restore_step=args.restore_step,
                                checkpoint=args.checkpoint, seed=args.seed, device=device,
-                               use_flash=args.use_flash, bf16=args.bf16)
+                               use_flash=args.use_flash, bf16=args.bf16,
+                               n_model=args.n_model)
     if trainer.mesh.is_lead:
-        n_params = sum(p.numel() for p in trainer.state.model.parameters())
-        print(f"Number of GANLike Parameters: {n_params}")
+        print(f"Number of GANLike Parameters: {parameter_counts(trainer.state.model)}")
     return trainer.fit(restore_step=args.restore_step, max_steps=args.max_steps)
 
 

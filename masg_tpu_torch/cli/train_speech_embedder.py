@@ -15,7 +15,8 @@ reference's torch format, `<out_dir>/final_epoch_<epochs>.pth` last: a
 both packages. `--n_devices N` trains data-parallel over N processes (the
 reference's NCCL DDP, masg_tpu's mesh): the N x M chunk batch splits by
 rows over `data_parallel_size(N * M, n_devices)` of them; `--multihost`
-joins the group the environment names (see `cli.train`).
+joins the group the environment names (see `cli.train`). masg_tpu trains
+GE2E with no model axis (n_model=1), so `--n_model` > 1 raises.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     add_parallel_flags(parser)
     args = parser.parse_args(argv)
-    return launch_data_parallel(run, args, args.n_speakers * args.m_utts)
+    return launch_data_parallel(run, args, args.n_speakers * args.m_utts, model_axis=False)
 
 
 def run(args, device):

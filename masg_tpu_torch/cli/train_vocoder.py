@@ -26,7 +26,8 @@ and masg_tpu's `load_generator_checkpoint` read. `log.jsonl` gets masg_tpu's lin
 batch): `data_parallel_size(batch_size, N)` processes, each on its rows of
 every batch (all of them draw the same stream), averaging the gradients;
 rank 0 logs and writes the checkpoints. `--multihost` joins the group the
-environment names (see `cli.train`).
+environment names (see `cli.train`). masg_tpu trains the vocoder with no
+model axis (n_model=1), so `--n_model` > 1 raises.
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ def main(argv=None):
     add_parallel_flags(parser)
     args = parser.parse_args(argv)
     cfg = training_config(args.config)
-    return launch_data_parallel(run, args, args.batch_size or int(cfg["batch_size"]))
+    return launch_data_parallel(run, args, args.batch_size or int(cfg["batch_size"]),
+                                model_axis=False)
 
 
 def training_config(path=None) -> dict:

@@ -7,9 +7,10 @@ are the reference's torch names, so the result loads with `strict=True`:
 - `fs2_state_dict_from_jax` is a copy of masg_tpu's `export_torch_fastspeech2`
   + `reference_buffers` (compat/torch_fs2.py), kept here so the port imports
   nothing of masg_tpu. The pitch/energy bins are `make_bins`' values, the
-  edges masg_tpu's own forward uses. A JDIT teacher's tree maps too
-  (`jdit_state_dict_from_jax`), its two `OptimizedLSTMCell`s as
-  `_lstm_layer` splits them;
+  edges masg_tpu's own forward uses. Given a `model_axis` it returns that
+  rank's shard (`parallel.mesh.shard_state`), for a tensor-parallel model.
+  A JDIT teacher's tree maps too (`jdit_state_dict_from_jax`), its two
+  `OptimizedLSTMCell`s as `_lstm_layer` splits them;
 - `melgan_state_dict_from_jax` maps masg_tpu's `MelGANGenerator` params
   onto the port's `MelGANGenerator`;
 - `hifigan_state_dict_from_jax` is the inverse of masg_tpu's
@@ -108,15 +109,28 @@ def jdit_state_dict_from_jax(params: Mapping[str, Any], halve_bias: bool = True
 
 
 def fs2_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]],
-                            cfg: ExperimentConfig, lstm_halve_bias: bool = True
-                            ) -> Dict[str, torch.Tensor]:
+                            cfg: ExperimentConfig, lstm_halve_bias: bool = True,
+                            model_axis=None) -> Dict[str, torch.Tensor]:
     """masg_tpu FastSpeech2 params + batch_stats -> the port's FastSpeech2
     state_dict, derived buffers (position tables, bins, BatchNorm counters)
     included. With `batch_stats` None the BatchNorm statistics are left out
     (a tree shaped like the params, such as an Adam moment). A JDIT
     teacher's folded LSTM biases split in half (`_lstm_layer`); for an Adam
     moment (`lstm_halve_bias=False`) each of torch's two biases carries the
-    folded bias's moment as it is, since each sees the folded gradient."""
+    folded bias's moment as it is, since each sees the folded gradient.
+    `model_axis` (`parallel.tensor.ModelAxis`): that rank's shard of it."""
+    out = _fs2_state_dict(params, batch_stats, cfg, lstm_halve_bias)
+    if model_axis is None:
+        return out
+    from ..models.fastspeech2 import FastSpeech2
+    from ..parallel.mesh import shard_state, sharded_names
+
+    with torch.device("meta"):  # the layout alone, no weights
+        names = sharded_names(FastSpeech2.build(cfg, False, model_axis))
+    return shard_state(out, names, model_axis)
+
+
+def _fs2_state_dict(params, batch_stats, cfg, lstm_halve_bias) -> Dict[str, torch.Tensor]:
     tr, ve = cfg.model.transformer, cfg.model.variance_embedding
     out: Dict[str, torch.Tensor] = {}
 

@@ -24,6 +24,12 @@ depend on how many processes trained it. The port's own keys (`scheduler`,
 `{"model"[, "discriminator"], "optimizer"}` file, which lacks them, restores
 at micro-step 0 with no accumulated gradient and the schedule at Adam's step
 count.
+
+Tensor parallelism does not change the file either: on a model axis `save`
+gathers every split parameter, its Adam moments, master copy and
+accumulated gradient over the model group (every rank of the group calls
+it; model rank 0 writes), and `restore`/`restore_model_only` read the whole
+file and keep this rank's shard (`parallel.mesh.shard_state`).
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..compat.torch_order import ganlike_param_order, ge2e_param_order, reference_param_order
+from ..parallel.mesh import shard_state, sharded_names, unshard_state, unshard_tensor
 from ..train.optim import set_schedule_count
 from ..train.state import TrainState
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 _NAME = re.compile(r"^(\d+)\.pth\.tar$")
 
@@ -51,17 +60,34 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, f"{step}.pth.tar")
 
     def save(self, step: int, state: TrainState) -> None:
+        """Write `step`'s checkpoint. On a model axis every rank of the model
+        group calls it (the gathers are collectives); model rank 0 writes."""
+        axis = state.model_axis
+        dims = state.shard_dims
+
+        def whole(t, dim):
+            return t if dim is None else unshard_tensor(t, dim, axis)
+
+        opt = state.optimizer.state_dict()
+        if axis is not None:
+            opt = dict(opt, state={i: {k: whole(v, dims[i]) if k in _MOMENTS else v
+                                       for k, v in st.items()}
+                                   for i, st in opt["state"].items()})
         payload = {
-            "model": state.fs2.state_dict(),
-            "optimizer": _to_reference_layout(state, state.optimizer.state_dict()),
+            "model": unshard_state(state.fs2.state_dict(),
+                                   sharded_names(state.fs2) if axis else {}, axis),
+            "optimizer": _to_reference_layout(state, opt),
             "scheduler": state.scheduler.state_dict(),
             "step": step,
             "micro_step": state.micro_step,
             # the accumulated gradient of an update still in progress
-            "acc_grads": ([p.grad for p in state.params()]
+            "acc_grads": ([whole(p.grad, d) for p, d in zip(state.params(), dims)]
                           if state.micro_step else None),
-            "master": state.master,
+            "master": (None if state.master is None else
+                       [whole(m, d) for m, d in zip(state.master, dims)]),
         }
+        if axis is not None and axis.rank != 0:
+            return
         if state.discriminator is not None:
             payload["discriminator"] = state.discriminator.state_dict()
         tmp = self.path(step) + ".tmp"
@@ -81,7 +107,13 @@ class CheckpointManager:
     def restore(self, step: int, state: TrainState) -> TrainState:
         """Full restore: model + optimizer + schedule (reference --restore_step)."""
         payload = self._load(step)
-        state.fs2.load_state_dict(payload["model"], strict=True)
+        axis = state.model_axis
+        dims = state.shard_dims
+
+        def mine(t, dim):
+            return t if dim is None else axis.shard(t, dim)
+
+        state.fs2.load_state_dict(_shard_model(state, payload["model"]), strict=True)
         if state.discriminator is not None:
             state.discriminator.load_state_dict(payload["discriminator"], strict=True)
         if (payload.get("master") is None) != (state.master is None):
@@ -90,9 +122,12 @@ class CheckpointManager:
                              f"{payload.get('master') is not None})")
         if state.master is not None:
             with torch.no_grad():
-                for m, saved in zip(state.master, payload["master"]):
-                    m.copy_(saved)
+                for m, saved, d in zip(state.master, payload["master"], dims):
+                    m.copy_(mine(saved, d))
         opt = _from_reference_layout(state, payload["optimizer"], self.path(step))
+        if axis is not None:
+            opt["state"] = {i: {k: mine(v, dims[i]) if k in _MOMENTS else v
+                                for k, v in st.items()} for i, st in opt["state"].items()}
         state.optimizer.load_state_dict(opt)
         if "scheduler" in payload:
             state.scheduler.load_state_dict(payload["scheduler"])
@@ -103,15 +138,15 @@ class CheckpointManager:
         state.step = step
         state.micro_step = payload.get("micro_step", 0)
         if payload.get("acc_grads") is not None:
-            for p, g in zip(state.params(), payload["acc_grads"]):
-                p.grad = g.to(p.device, p.dtype)
+            for p, g, d in zip(state.params(), payload["acc_grads"], dims):
+                p.grad = mine(g, d).to(p.device, p.dtype)
         return state
 
     def restore_model_only(self, step: int, state: TrainState) -> TrainState:
         """Warm start of the FastSpeech2 weights from another run's (reference
         --checkpoint); under bf16 storage the master copy follows them."""
         weights = self.model_state_dict(step)
-        state.fs2.load_state_dict(weights, strict=True)
+        state.fs2.load_state_dict(_shard_model(state, weights), strict=True)
         state.sync_master()
         return state
 
@@ -126,6 +161,12 @@ class CheckpointManager:
     def all_steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.ckpt_dir))
                       if m)
+
+
+def _shard_model(state: TrainState, weights: dict) -> dict:
+    """This rank's shard of whole FastSpeech2 weights."""
+    axis = state.model_axis
+    return shard_state(weights, sharded_names(state.fs2) if axis else {}, axis)
 
 
 def _fs2_order(model: torch.nn.Module) -> List[str]:

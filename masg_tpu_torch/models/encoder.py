@@ -4,7 +4,9 @@ Reference: transformer/Models.py:33-183. As in masg_tpu, the positional
 encoding is the closed-form sinusoid at the padded length, which equals the
 reference's stored table wherever that table reaches. The reference's
 `position_enc` table is still registered as a buffer, so its checkpoints
-load with `strict=True`; the forward never reads it.
+load with `strict=True`; the forward never reads it. A `model_axis`
+(`parallel.tensor.ModelAxis`) splits every FFT block's attention and FFN
+(`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden: int = 256, n_layers: int = 4, n_head: int = 2,
                  d_inner: int = 1024, kernel_size: Tuple[int, int] = (9, 1),
-                 dropout: float = 0.2, max_seq_len: int = 1000, use_flash: bool = True):
+                 dropout: float = 0.2, max_seq_len: int = 1000, use_flash: bool = True,
+                 model_axis=None):
         super().__init__()
         self.hidden = hidden
         self.register_buffer("position_enc", _position_table_buffer(max_seq_len, hidden))
@@ -39,7 +42,7 @@ class Encoder(nn.Module):
         # reference quirk (src_accent_emb padding_idx=PAD, Models.py:60-62)
         self.src_accent_emb = PaddedEmbedding(N_ACCENT, hidden)
         self.layer_stack = nn.ModuleList(
-            FFTBlock(hidden, n_head, d_inner, kernel_size, dropout, use_flash)
+            FFTBlock(hidden, n_head, d_inner, kernel_size, dropout, use_flash, model_axis)
             for _ in range(n_layers))
 
     def forward(self, src_seq: torch.Tensor, pad_mask: torch.Tensor,
@@ -64,13 +67,14 @@ class Decoder(nn.Module):
 
     def __init__(self, hidden: int = 256, n_layers: int = 6, n_head: int = 2,
                  d_inner: int = 1024, kernel_size: Tuple[int, int] = (9, 1),
-                 dropout: float = 0.2, max_seq_len: int = 1000, use_flash: bool = True):
+                 dropout: float = 0.2, max_seq_len: int = 1000, use_flash: bool = True,
+                 model_axis=None):
         super().__init__()
         self.hidden = hidden
         self.max_seq_len = max_seq_len
         self.register_buffer("position_enc", _position_table_buffer(max_seq_len, hidden))
         self.layer_stack = nn.ModuleList(
-            FFTBlock(hidden, n_head, d_inner, kernel_size, dropout, use_flash)
+            FFTBlock(hidden, n_head, d_inner, kernel_size, dropout, use_flash, model_axis)
             for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,

@@ -10,6 +10,10 @@ ground-truth mels it reads the raw encoder output, before the speaker vector
 is added, and returns a parallel mel and alignments (reference
 fastspeech2.py:77-78).
 
+On a model axis (`from_config(..., mesh=)` with n_model > 1) the FFT blocks
+and PostNet convs 0-3 hold this rank's shard (`models/layers.py`,
+`models/postnet.py`); everything else is replicated.
+
 Parameter names are the reference's torch names, so a reference-format
 checkpoint (`{"model": state_dict}`, as `python -m masg_tpu.cli.convert_checkpoint
 --to_torch` writes it) loads with `strict=True`.
@@ -89,31 +93,51 @@ class FastSpeech2(nn.Module):
                  use_jdit: bool = False, jdit_attention_rnn_dim: int = 1024,
                  jdit_decoder_rnn_dim: int = 1024, jdit_prenet_dim: int = 256,
                  jdit_attention_dim: int = 128, jdit_location_filters: int = 32,
-                 jdit_location_kernel: int = 31):
+                 jdit_location_kernel: int = 31, model_axis=None):
         super().__init__()
         self.multi_speaker = multi_speaker
+        self.model_axis = model_axis  # parallel.tensor.ModelAxis, or None
         self.encoder = Encoder(encoder_hidden, encoder_layer, encoder_head,
                                conv_filter_size, conv_kernel_size, encoder_dropout,
-                               max_seq_len, use_flash)
+                               max_seq_len, use_flash, model_axis)
         self.variance_adaptor = VarianceAdaptor(
             pitch_bins, energy_bins, n_bins, encoder_hidden, vp_filter_size,
             vp_kernel_size, vp_dropout, pitch_feature_level, energy_feature_level)
         self.decoder = Decoder(decoder_hidden, decoder_layer, decoder_head,
                                conv_filter_size, conv_kernel_size, decoder_dropout,
-                               max_seq_len, use_flash)
+                               max_seq_len, use_flash, model_axis)
         self.mel_linear = nn.Linear(decoder_hidden, n_mel_channels)
         self.jdit = (JDIT(n_mel_channels, encoder_hidden, jdit_attention_rnn_dim,
                           jdit_decoder_rnn_dim, jdit_prenet_dim, jdit_attention_dim,
                           jdit_location_filters, jdit_location_kernel)
                      if use_jdit else None)
-        self.postnet = PostNet(n_mel_channels)
+        self.postnet = PostNet(n_mel_channels, model_axis=model_axis)
         if multi_speaker:
             self.speaker_emb = nn.Embedding(n_speakers, encoder_hidden)
             self.speaker_enc = SpeakerMetaEncoder(meta_dim, gmm_mixtures, encoder_hidden)
 
     @staticmethod
-    def from_config(cfg: ExperimentConfig, use_flash: bool = True) -> "FastSpeech2":
-        """The model `cfg` describes, with fresh (torch default) weights."""
+    def from_config(cfg: ExperimentConfig, use_flash: bool = True, mesh=None) -> "FastSpeech2":
+        """The model `cfg` describes, with fresh (torch default) weights. On
+        the model axis of `mesh` (`parallel.mesh.DataMesh`, n_model > 1):
+        the whole model is drawn first, as one device draws it, and this
+        rank keeps its shard, so every topology starts from the same
+        weights."""
+        axis = None if mesh is None else mesh.model_axis
+        if axis is None:
+            return FastSpeech2.build(cfg, use_flash)
+        from ..parallel.mesh import shard_state, sharded_names
+
+        whole = FastSpeech2.build(cfg, use_flash)
+        model = FastSpeech2.build(cfg, use_flash, axis)
+        model.load_state_dict(shard_state(whole.state_dict(), sharded_names(model), axis))
+        return model
+
+    @staticmethod
+    def build(cfg: ExperimentConfig, use_flash: bool = True, model_axis=None) -> "FastSpeech2":
+        """The model `cfg` describes, its layers split on `model_axis`
+        (`parallel.tensor.ModelAxis`), with weights drawn at the split's
+        shapes (`from_config` gives the one-device weights' shard)."""
         m, p = cfg.model, cfg.preprocess
         if m.multi_speaker and cfg.speakers is None:
             raise FileNotFoundError(
@@ -157,6 +181,7 @@ class FastSpeech2(nn.Module):
             jdit_attention_dim=m.jdit.attention_dim,
             jdit_location_filters=m.jdit.location_filters,
             jdit_location_kernel=m.jdit.location_kernel,
+            model_axis=model_axis,
         )
 
     def _synthesis_core(self, texts, src_lens, max_mel_len, speaker_vec,

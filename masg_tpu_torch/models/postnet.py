@@ -5,6 +5,14 @@ Reference: transformer/Layers.py:67-137, under its parameter names
 (`convolutions.i.0.conv`, `convolutions.i.1`). The residual add is done by
 the caller. Dropout 0.5 follows every conv output, the last one included
 (Layers.py:129-137); it is active in train mode only.
+
+On a `model_axis` (`parallel.tensor.ModelAxis`) that divides the 512
+channels, convs 0-3 are column parallel (masg_tpu's `postnet.*conv_[0-3]`
+rule): each keeps this rank's output channels, its bias and its
+BatchNorm's; the tanh output is gathered back to all channels before the
+dropout and the next conv. Conv 4 stays whole. The dropout thus draws the
+one-device mask on the whole activation, the same on every model rank (a
+mask follows the tensor's memory layout, so the gather keeps the conv's).
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ class TorchBatchNorm(nn.BatchNorm1d):
         return self
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """`mesh` (`parallel.mesh.DataMesh`): train-mode statistics over the
+        global batch of its data group (this rank's channels are the same
+        on every rank of that group)."""
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             if mesh is None or mesh.parts == 1:
@@ -65,12 +76,17 @@ class TorchBatchNorm(nn.BatchNorm1d):
 
 class PostNet(nn.Module):
     def __init__(self, n_mel_channels: int = 80, embedding_dim: int = 512,
-                 kernel_size: int = 5, n_convolutions: int = 5):
+                 kernel_size: int = 5, n_convolutions: int = 5, model_axis=None):
         super().__init__()
-        chans = [n_mel_channels] + [embedding_dim] * (n_convolutions - 1) + [n_mel_channels]
+        self.split = model_axis is not None and model_axis.splits(embedding_dim)
+        self.axis = model_axis if self.split else None
+        last = n_convolutions - 1
+        chans = [n_mel_channels] + [embedding_dim] * last + [n_mel_channels]
+        outs = [c // model_axis.size if self.split and i < last else c
+                for i, c in enumerate(chans[1:])]
         self.convolutions = nn.ModuleList(
-            nn.Sequential(ConvNorm(chans[i], chans[i + 1], kernel_size),
-                          TorchBatchNorm(chans[i + 1], eps=1e-5))
+            nn.Sequential(ConvNorm(chans[i], outs[i], kernel_size),
+                          TorchBatchNorm(outs[i], eps=1e-5))
             for i in range(n_convolutions))
         self.dropout = nn.Dropout(0.5)
 
@@ -78,8 +94,22 @@ class PostNet(nn.Module):
         """x: (B, T, n_mels) -> (B, T, n_mels); `mesh`: see TorchBatchNorm."""
         last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
+            split = self.axis is not None and i != last
+            if split:
+                x = self.axis.copy(x)
             x = bn(conv(x.transpose(1, 2)).transpose(1, 2), mesh)
             if i != last:
                 x = torch.tanh(x)
+            if split:  # gathered in the conv's (B, C, T) layout, where dropout draws
+                x = self.axis.gather(x.transpose(1, 2), dim=1).transpose(1, 2)
             x = self.dropout(x)
         return x
+
+    def sharded_params(self):
+        """{state-dict key: split dimension} of the tensors this rank holds a
+        shard of: convs 0-3 and the BatchNorms after them, by channel."""
+        if not self.split:
+            return {}
+        return {f"convolutions.{i}.{key}": 0 for i in range(len(self.convolutions) - 1)
+                for key in ("0.conv.weight", "0.conv.bias", "1.weight", "1.bias",
+                            "1.running_mean", "1.running_var")}

@@ -1,4 +1,4 @@
-"""Process groups and the collectives of data-parallel training
+"""Process groups and the collectives of data- and tensor-parallel training
 (port of masg_tpu/parallel/distributed.py).
 
 masg_tpu joins hosts with `jax.distributed.initialize` and lets XLA insert
@@ -16,7 +16,10 @@ the same on every rank is then read by each rank's part, so its cotangent is
 the sum of the ranks' cotangents: the backward of `all_reduce_sum` is an
 all-reduce too, and so is that of `all_gather_rows` before it takes this
 rank's rows. A rank that computes a whole replicated loss from gathered rows
-counts 1 / world_size of it as its part (`train/ge2e.py`).
+counts 1 / world_size of it as its part (`train/ge2e.py`). Every collective
+takes a `group` (default: the whole world); a 2-D mesh runs these over its
+data group, and the tensor-parallel operators of `parallel/tensor.py` over
+its model group, whose ranks each hold the WHOLE loss.
 
 `initialize` reads masg_tpu's environment names (MASG_COORDINATOR,
 MASG_NUM_PROCESSES, MASG_PROCESS_ID, MASG_INIT_TIMEOUT) and torchrun's
@@ -100,69 +103,75 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def reduced(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A contiguous copy of `x` summed over the ranks of `group` (no autograd)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        out = x.clone()
-        dist.all_reduce(out)
-        return out
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduced(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
+        return reduced(g, ctx.group), None
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, n: int, r: int):
+    def forward(ctx, x, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
         rows = x.shape[0]
-        ctx.rows, ctx.r = rows, r
+        ctx.rows, ctx.r, ctx.group = rows, r, group
         buf = x.new_zeros((n * rows,) + tuple(x.shape[1:]))
         buf[r * rows:(r + 1) * rows] = x
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         return buf
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g[ctx.r * ctx.rows:(ctx.r + 1) * ctx.rows], None, None
+        g = reduced(g, ctx.group)
+        return g[ctx.r * ctx.rows:(ctx.r + 1) * ctx.rows], None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of `x` over the ranks, on every rank (autograd: see the module
-    docstring)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, on every one of them
+    (autograd: see the module docstring)."""
+    return _AllReduceSum.apply(x, group)
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' `x` (equal shapes) stacked along dim 0 in rank order, on
-    every rank, from an all-reduce of a zero-padded buffer (autograd: the
-    backward sums the ranks' cotangents and returns this rank's rows)."""
-    return _AllGatherRows.apply(x, world_size(), rank())
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' `x` (equal shapes) stacked along dim 0 in the group's rank
+    order, on every rank, from an all-reduce of a zero-padded buffer
+    (autograd: the backward sums the ranks' cotangents and returns this
+    rank's rows)."""
+    return _AllGatherRows.apply(x, group)
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Overwrite `tensors` on every rank with rank `src`'s, in place."""
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group=None) -> None:
+    """Overwrite `tensors` on every rank of `group` with global rank `src`'s,
+    in place."""
     with torch.no_grad():
         for t in tensors:
-            dist.broadcast(t, src)
+            dist.broadcast(t, src, group=group)
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum `tensors` over the ranks in place, coalesced: one flat all-reduce
-    per dtype."""
+def all_reduce_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum `tensors` over the ranks of `group` in place, coalesced: one flat
+    all-reduce per dtype."""
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
-        for group in by_dtype.values():
-            flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat)
+        for same in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.all_reduce(flat, group=group)
             offset = 0
-            for t in group:
+            for t in same:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
 

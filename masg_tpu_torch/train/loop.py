@@ -18,15 +18,19 @@ one optimizer, `models/ganlike.py`), each with `param_storage`, and each with
 the JDIT teacher when the config sets `jdit.use_jdit` (its loss joins the
 plain and `--use_clf` steps, as in masg_tpu; ganlike's step leaves it out).
 
-Data parallelism (masg_tpu's device mesh): one process per device, joined
-in a torch.distributed group (`parallel/`). Every rank builds the same
-loader from the same seed and takes its rows of each global batch
-(`DataMesh.shard_batch`); the step sums the ranks' gradients, so every rank
-takes the one-device update. Parameters and buffers are broadcast from rank
-0 at start and after a restore. Rank 0 logs, synthesizes samples, evaluates
-and writes checkpoints (in the one layout of `core/checkpoint.py`, whatever
-the topology); the other ranks meet it at a barrier. Each rank seeds its
-dropout from (seed, step, rank).
+The (data, model) mesh (masg_tpu's device mesh): one process per device,
+joined in a torch.distributed group (`parallel/`). Every rank builds the
+same loader from the same seed and takes its data rank's rows of each
+global batch (`DataMesh.shard_batch`); the step sums the data ranks'
+gradients, so every rank takes the one-device update of its parameters. On
+a model axis (`n_model` > 1) each rank holds its shard of the split weights
+(`FastSpeech2.from_config(mesh=)`). Parameters and buffers are broadcast
+from data rank 0 at start and after a restore. The model group of data
+rank 0 evaluates, synthesizes samples and gathers checkpoints together (all
+three run collectives over it); rank 0 alone logs and writes the files (in
+the one layout of `core/checkpoint.py`, whatever the topology), and the
+other ranks meet it at a barrier. Each rank seeds its dropout from (seed,
+step, data rank), so the model ranks of a data rank draw the same masks.
 
 masg_tpu's `_pack_batch`/`_unpack_fn` (one host->device transfer per batch,
 a workaround for a remoted TPU) has no counterpart here.
@@ -50,7 +54,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.fastspeech2 import FastSpeech2
 from ..models.ganlike import GANLike
 from ..models.speaker_encoder import SpeechEmbedder
-from ..parallel.mesh import DataMesh, check_model_axis
+from ..parallel.mesh import DataMesh
 from ..utils.logging import Logger, log_losses
 from .optim import noam_schedule
 from .state import TrainState, create_train_state
@@ -60,7 +64,7 @@ from .step import (batch_to_device, draw_shuffle, make_eval_step, make_ganlike_t
 
 def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The dropout seed of `step`: a pure function of (seed, step), the
-    counterpart of masg_tpu's `fold_in(rng, step)`; a rank > 0 of a
+    counterpart of masg_tpu's `fold_in(rng, step)`; a data rank > 0 of a
     data-parallel run seeds its rows' masks from (seed, step, rank)."""
     return int(np.random.SeedSequence([seed, step] + ([rank] if rank else []))
                .generate_state(1)[0])
@@ -207,20 +211,20 @@ class Trainer:
                     synth = step % self.synth_step == 0
                     val = step % self.val_step == 0 and self.val_dataset is not None
                     saved = step % self.save_step == 0
-                    if synth and lead:
-                        try:
-                            self.synth_sample(batch, step)
-                        except Exception as e:  # synth is best-effort telemetry
-                            print(f"synth_step failed: {e}")
+                    # data rank 0's model group: its forwards and gathers are
+                    # collectives over that group
+                    row = self.mesh.lead_row
+                    if synth and row:
+                        self.synth_sample(batch, step)
 
-                    if val and lead:
+                    if val and row:
                         self.evaluate(step)
 
-                    if saved and lead:
+                    if saved and row:
                         self.ckpt.save(step, self.state)
 
                     if self.mesh.any(preempted["flag"]):
-                        if not saved and lead:
+                        if not saved and row:
                             self.ckpt.save(step, self.state)
                         if lead:
                             print(f"preempted: checkpoint saved at step {step}; "
@@ -244,11 +248,20 @@ class Trainer:
                      logger: Optional[Logger] = None, tag_prefix: str = "Training") -> None:
         """Reference synth_step hook (train.py:225-260, utils/tools.py
         synth_one_sample): prediction-vs-GT mel figures with pitch/energy
-        overlays for the first batch item."""
+        overlays for the first batch item. The eval forward runs on every
+        rank of data rank 0's model group; rank 0 then draws the figure,
+        best-effort (a failure there is printed, not raised)."""
+        _, _, out = self.eval_step_fn(self.state, self._place_batch(batch))
+        if not self.mesh.is_lead:
+            return
+        try:
+            self._plot_sample(batch, out, step, logger or self.train_logger, tag_prefix)
+        except Exception as e:  # telemetry: the run goes on
+            print(f"{tag_prefix} synth sample failed: {e}")
+
+    def _plot_sample(self, batch, out, step, logger, tag_prefix) -> None:
         from ..utils.logging import plot_mel
 
-        logger = logger or self.train_logger
-        _, _, out = self.eval_step_fn(self.state, self._place_batch(batch))
         i = 0
         mel_len = int(out.mel_len[i])
         src_len = int(out.src_len[i])
@@ -298,7 +311,7 @@ class Trainer:
                 count += n
                 last_batch = batch
         means = [s / max(count, 1) for s in sums] if sums else []
-        if means:
+        if means and self.mesh.is_lead:
             log_losses(self.val_logger, step, means, eloss=eloss_sum / max(count, 1))
             msg = ("Validation Step {}, Total Loss: {:.4f}, Mel Loss: {:.4f}, "
                    "Mel PostNet Loss: {:.4f}, Pitch Loss: {:.4f}, Energy Loss: {:.4f}, "
@@ -309,11 +322,7 @@ class Trainer:
                 f.write(msg + "\n")
         # one synthesized val sample per evaluation (reference evaluate.py:83-111)
         if last_batch is not None:
-            try:
-                self.synth_sample(last_batch, step, logger=self.val_logger,
-                                  tag_prefix="Validation")
-            except Exception as e:  # best-effort telemetry
-                print(f"val synth sample failed: {e}")
+            self.synth_sample(last_batch, step, logger=self.val_logger, tag_prefix="Validation")
         return means
 
 
@@ -404,17 +413,18 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
     trains against a frozen GE2E discriminator, `ganlike` jointly with it
     (`clf_featurization`: see `make_train_step`). `checkpoint`, another run's
     checkpoint dir, warm-starts the FastSpeech2 weights only from its latest
-    step. `mesh`: this process's share of a data-parallel run (default: the
-    joined process group's, one device without one); `n_model` > 1 (tensor
-    parallelism) raises."""
-    check_model_axis(n_model)
+    step. `mesh`: this process's place in a parallel run (default: the
+    joined process group's (world / n_model, n_model) mesh, one device
+    without one); on its model axis the FastSpeech2's split weights hold
+    this rank's shard. Every topology starts from the one-device weights of
+    `seed` and reads and writes the same checkpoints."""
     corpora = corpora or list(cfg.corpora)
     if not corpora:
         raise ValueError("no corpora configured (preprocess_<CORPUS>.yaml in the config dir)")
     dev = resolve_device(device)
 
     bs = cfg.train.optimizer.batch_size
-    mesh = mesh or DataMesh.from_process_group(bs)
+    mesh = mesh or DataMesh.from_process_group(bs, n_model)
     # padded lengths round up to 16 text / 64 mel frames, the buckets of
     # masg_tpu's batches, so both packages train on the same padded shapes
     buckets = dict(text_bucket=16, mel_bucket=64)
@@ -436,7 +446,7 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = FastSpeech2.from_config(cfg, use_flash=use_flash)
+        model = FastSpeech2.from_config(cfg, use_flash=use_flash, mesh=mesh)
     model.to(dev)
     if param_storage != "f32":
         model.to(torch.bfloat16)  # PostNet's BatchNorm statistics stay f32
@@ -454,6 +464,6 @@ def build_experiment(cfg: ExperimentConfig, corpora: Optional[List[str]] = None,
         trainer.state = other.restore_model_only(other.latest_step(), trainer.state)
     if restore_step:
         trainer.state = trainer.ckpt.restore(restore_step, trainer.state)
-    st = trainer.state  # every rank starts from rank 0's weights
+    st = trainer.state  # every data rank starts from data rank 0's weights
     mesh.replicate([*st.model.parameters(), *st.model.buffers(), *(st.master or [])])
     return trainer

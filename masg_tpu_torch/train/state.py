@@ -14,6 +14,10 @@ bf16(master).
 `fs2` and `discriminator` say which part of `model` is the FastSpeech2 and
 which the discriminator trained with it (ganlike's `GANLike`); the clip, the
 checkpoints, the eval step and the Trainer read them.
+
+On a model axis (`model_axis`) the split parameters (`shard_dims`) hold this
+rank's shard, and so do their master copies and Adam moments: Adam is
+elementwise, so it steps the shards as it would the whole tensors.
 """
 
 from __future__ import annotations
@@ -38,11 +42,33 @@ class TrainState:
     step: int = 0  # train-step calls so far (micro-batches)
     micro_step: int = 0  # micro-batches accumulated toward the next update
     master: Optional[List[torch.Tensor]] = None  # f32 copies under bf16 storage
+    # per parameter of `params()`: the dimension its shard splits along on the
+    # model axis, or None (whole); read once from the layers
+    shard_dims: Optional[List[Optional[int]]] = None
+
+    def __post_init__(self):
+        if self.shard_dims is None:
+            from ..parallel.mesh import sharded_names
+
+            names = sharded_names(self.model) if self.model_axis is not None else {}
+            self.shard_dims = [names.get(n) for n, p in self.model.named_parameters()
+                               if p.requires_grad]
 
     @property
     def fs2(self) -> torch.nn.Module:
         """The FastSpeech2 being trained (ganlike: `model`'s FastSpeech2 half)."""
         return self.model.model if isinstance(self.model, GANLike) else self.model
+
+    @property
+    def model_axis(self):
+        """The FastSpeech2's model axis (`parallel.tensor.ModelAxis`), or None."""
+        return getattr(self.fs2, "model_axis", None)
+
+    @property
+    def shard_mask(self) -> List[bool]:
+        """Per parameter of `params()`: whether it holds this rank's shard of
+        a split weight (all False without a model axis)."""
+        return [d is not None for d in self.shard_dims]
 
     @property
     def discriminator(self) -> Optional[torch.nn.Module]:

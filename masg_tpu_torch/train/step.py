@@ -38,6 +38,15 @@ batch: `shard_batch` turns a global `reorder` into the rows' shuffled
 speakers, and the trainer draws it on the host, the same on every rank.
 Dropout masks depend on the rank's seed, so with dropout on a
 data-parallel run is another draw than one device's.
+
+Tensor parallelism: on a model axis (`TrainState.model_axis`; the mesh's
+data collectives then run over its data group) every model rank computes
+the whole loss of its rows, and its gradients are those of its shards and
+of the replicated parameters (averaged over the model group, so that the
+replicas stay equal bit for bit on a card). The clip's norm, and
+StepMetrics.grad_norm, sum the shards' squares over the model group and
+count the replicated parameters once. Every model rank seeds from the data
+rank, so the masks on replicated activations are the same on all of them.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..models.ganlike import GANLike
 from ..models.loss import FS2Losses, fastspeech2_loss, speaker_prior_log_prob
 from ..models.speaker_encoder import (SpeechEmbedder, bce_with_logits_sum, chunk_mels,
                                       discriminator_mode)
+from ..parallel.distributed import all_reduce_, reduced
 from .state import TrainState
 
 # the speaker_meta column of the binary language label (reference train.py:185)
@@ -73,11 +83,6 @@ class StepMetrics(NamedTuple):
     speaker_prior: torch.Tensor  # eloss (mean GMM log-prob, pre-negation)
     dloss: torch.Tensor  # adversarial language loss (0 on the plain step)
     grad_norm: torch.Tensor  # global norm of this micro-batch's gradient, pre-clip
-
-
-def unported(variant: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{variant}: not ported to masg_tpu_torch yet (ROADMAP.md queue 1 item {item})")
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dtype
@@ -158,9 +163,31 @@ def _losses(model, batch, train, pitch_feature_level, energy_feature_level,
     return total, losses, eloss, out
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt(sum of squares) over all gradients, as clip_grad_norm_ reduces it."""
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+def global_norm(grads, shard_mask=None, axis=None) -> torch.Tensor:
+    """sqrt(sum of squares) over all gradients, as clip_grad_norm_ reduces it.
+    On a model `axis` the grads flagged in `shard_mask` are this rank's
+    shards: their squares are summed over the model group, the replicated
+    ones counted once."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if axis is None:
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square()
+    split = torch.tensor(shard_mask, device=sq.device)
+    return torch.sqrt(reduced(sq[split].sum(), axis.group) + sq[~split].sum())
+
+
+def _clip(tensors, shard_mask, axis, max_norm: float) -> torch.Tensor:
+    """clip_grad_norm_ of `tensors`' gradients, by their global norm on a
+    model `axis` (the same coefficient as torch's: max_norm / (norm + 1e-6),
+    at most 1). Returns the norm."""
+    if axis is None:
+        return torch.nn.utils.clip_grad_norm_(tensors, max_norm)
+    grads = [t.grad for t in tensors]
+    norm = global_norm(grads, shard_mask, axis)
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(coef)
+    return norm
 
 
 def adversarial_schedule(step: int, total_step: int) -> float:
@@ -243,10 +270,21 @@ def _update(state: TrainState, total: torch.Tensor, mesh=None) -> torch.Tensor:
             p.grad = torch.zeros_like(p)
     if mesh is not None:
         mesh.reduce_grads(params)
+    axis = state.model_axis
+    shard = state.shard_mask if axis is not None else None
+    if axis is not None:
+        # every model rank computes the replicated parameters' gradients; on a
+        # card they were seen to differ in the last bits between ranks (cause
+        # not traced; K1-K3 use no atomics): their mean keeps the replicas one
+        # model, bit for bit
+        replicated = [p.grad for p, s in zip(params, shard) if not s]
+        all_reduce_(replicated, axis.group)
+        for g in replicated:
+            g.div_(axis.size)
     # the clip's norm is this gradient's when it covers every parameter of a
     # single micro-batch (over the master it is the f32 norm of the same values)
     grad_norm = (None if state.discriminator is None and k == 1
-                 else global_norm([p.grad for p in params]))
+                 else global_norm([p.grad for p in params], shard, axis))
     if k > 1:  # optax.MultiSteps: the mean of k micro-batch gradients, one update
         for i, p in enumerate(params):
             g = p.grad / k
@@ -260,8 +298,10 @@ def _update(state: TrainState, total: torch.Tensor, mesh=None) -> torch.Tensor:
     if state.master is not None:
         for m, p in zip(state.master, params):
             m.grad = p.grad.to(m.dtype)
-    clip = [t for t, c in zip(opt, state.clip_mask()) if c]
-    norm = torch.nn.utils.clip_grad_norm_(clip, state.grad_clip_thresh)
+    mask = state.clip_mask()
+    clip = [t for t, c in zip(opt, mask) if c]
+    norm = _clip(clip, shard and [s for s, c in zip(shard, mask) if c], axis,
+                 state.grad_clip_thresh)
     grad_norm = norm if grad_norm is None else grad_norm
     state.optimizer.step()
     state.scheduler.step()

@@ -68,7 +68,7 @@ def test_every_module_imports_with_jax_and_masg_tpu_blocked():
                 "preprocessor.textgrid", "preprocessor.preprocessor", "models.jdit",
                 "models.melgan", "preprocessor.alignments", "cli.retrieve", "cli.gather",
                 "cli.make_config", "cli.prepare_alignments", "cli.graph2phone_lab",
-                "cli.jvs_speakers", "parallel.distributed", "parallel.mesh",
+                "cli.jvs_speakers", "parallel.distributed", "parallel.mesh", "parallel.tensor",
                 "utils.profiling", "utils.mcd", "compat.torch_order"):
         assert f"masg_tpu_torch.{sub}" in names.split(), sub
 
@@ -165,9 +165,11 @@ def test_cli_device_flag_defaults_to_cuda(tmp_path):
 
 
 def test_unported_flags_raise_not_implemented():
-    """JDIT and MelGAN (queue 1 item 11) now build, and so does data
-    parallelism (item 12: `--n_devices`, `--multihost`, `--data_parallel`);
-    tensor parallelism (`--n_model > 1`, the rest of item 12) still raises."""
+    """JDIT and MelGAN (queue 1 item 11) build, and so do data and tensor
+    parallelism (item 12: `--n_devices`, `--multihost`, `--data_parallel`,
+    `--n_model`). The GE2E and vocoder trainers refuse `--n_model > 1`: masg_tpu
+    trains them with no model axis. `--n_model 2` with too few devices raises
+    instead of running on one."""
     from masg_tpu_torch.infer.vocoder import get_vocoder
     from masg_tpu_torch.models import FastSpeech2
     from masg_tpu_torch.models.melgan import MelGANGenerator
@@ -182,12 +184,19 @@ def test_unported_flags_raise_not_implemented():
     from masg_tpu_torch.cli.train_speech_embedder import main as train_speech_embedder
     from masg_tpu_torch.cli.train_vocoder import main as train_vocoder
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+    with pytest.raises(ValueError, match="no model axis"):
         train_vocoder(["--wav_dir", "unused", "--out", "unused", "--device", "cpu",
                        "--n_devices", "2", "--n_model", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+    with pytest.raises(ValueError, match="no model axis"):
         train_speech_embedder(["--data_path", "unused", "--out_dir", "unused", "--device",
                                "cpu", "--n_model", "2"])
+    import argparse
+
+    from masg_tpu_torch.parallel.mesh import launch_data_parallel
+
+    args = argparse.Namespace(n_model=2, n_devices=1, multihost=False, device="cpu")
+    with pytest.raises(ValueError, match="--n_model 2 needs 2 devices"):
+        launch_data_parallel(print, args, 4)
 
 
 def test_kernel_loader_raises_without_nvcc():
