@@ -9,11 +9,12 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build the three CUDA kernel libraries from `masg_tpu_torch/csrc/` with nvcc
    (sm_90a), all at once, print ptxas' register / shared-memory / spill report
    (0 spill bytes required of the f32 K1 and K3 at Dh = 128, of every f32 K2
-   entry (Dh 16/32/64/128, 32- and 64-row tiles) and of the f32 K4), and count
-   the tensor-core instructions (HMMA, HGMMA) of every kernel entry point in
-   the SASS (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one per Dh in
-   16/32/64/128) and K4 (C = 32, 64), and the 3xTF32 f32 K4 (C = 32, 64),
-   must have some;
+   entry (Dh 16/32/64/128, 32- and 64-row tiles), of the f32 K4 (C = 8, 16,
+   32, 64) and of the bf16 K4 at C = 8 and 16), and count the tensor-core
+   instructions (HMMA, HGMMA) of every kernel entry point in the SASS
+   (`cuobjdump -sass`): every bf16 entry of K1, K2, K3 (one per Dh in
+   16/32/64/128) and K4 (C = 8, 16, 32, 64), and the 3xTF32 f32 K4 (C = 8,
+   16, 32, 64), must have some;
 3. K1 (flash-attention forward) against its plain PyTorch version:
    B=16, H=2, Dh=128, T in {128, 640, 1000}, ragged lengths including 0 and
    1, float32 and bfloat16; times of the kernel, the plain version, masked
@@ -21,8 +22,10 @@ Phases (any failure exits non-zero; nothing is caught):
    least time the card could take (bound), the kernel's and SDPA's also as
    device time from a torch.profiler window;
 4. K4 (fused MRF stage) against its plain version at the HiFi-GAN V1 stage
-   shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16), and
-   a run that starts 1037 rows later, which must give the same bits at every
+   shapes of the main path (C=64 at T=81920, C=32 at T=163840, B=16), at
+   V2's narrow stages (C=16 at T=81920, C=8 at T=163840, kernels 3/7/11) and
+   at C=16 with the demo vocoder's two resblocks (kernels 3/7), each with a
+   run that starts 1037 rows later, which must give the same bits at every
    row more than 64 rows past the cut (float32 and bfloat16); the float32
    bound is given at the 3xTF32 rate (the TF32 tensor-core rate / 3) beside
    the CUDA cores' f32 rate;
@@ -85,9 +88,10 @@ Phases (any failure exits non-zero; nothing is caught):
    speakers' wavs: 3 steps on the card against the same 3 on the CPU, ms
    per step, one DA-subroutine epoch and one `evaluate_eer`;
 12. [adversarial]: the `--use_clf` step (clf_featurization model and ge2e)
-   and the ganlike step at the flagship width and [train]'s batch (rows of
-   both languages, an injected speaker shuffle and label jitter), with a
-   GE2E discriminator of [ge2e]'s width: kernel vs plain path (losses with
+   and the ganlike step at the flagship width and [train]'s batch at 749
+   frames that every row fills (rows of both languages, an injected speaker
+   shuffle and label jitter), with a GE2E discriminator of [ge2e]'s width as
+   the port builds it: kernel vs plain path (losses with
    dloss, every gradient of FastSpeech2 and, in ganlike, of the
    discriminator, BatchNorm statistics; dropout off; the gradient of dloss
    alone against the plain path in float32 and float64), exactly 20 launches
@@ -123,10 +127,30 @@ Phases (any failure exits non-zero; nothing is caught):
    within 2 LSB), RTF and vocoder ms (medians of 3, in turns),
    `vocode_streaming` of one utterance against its one-shot vocode, one
    `ServingEngine` dispatch with the MelGAN vocoder (K1 10, K4 0);
-17. [dp] (inside 10's directory): two spawned gloo ranks sharing the card
+17. [v2]: text->wav at B=16 through upstream's universal V2 generator
+   (config_v2.json's values written as a hifigan_config.json, seeded random
+   weights) behind the f32 flagship FastSpeech2: K1 exactly 10 and K4 4
+   launches per forward (C = 64, 32, 16, 8), kernel vs plain path (mel_len
+   identical, wav within 2 LSB), RTF and vocoder ms (medians of 3, in turns),
+   K4's device time per stage from a profiler window;
+18. [demo]: `masg_tpu_torch.demo.full_pipeline` on the card at masg_tpu's
+   defaults but 1000 vocoder steps (`DEMO_VOCODER_STEPS`): its stage times,
+   evidence and K1-K4 launches per stage (K1-K3 alike in both FastSpeech2
+   trainings, K4 4 per vocoder forward: 16 in copy
+   synthesis, 24 in the wavs, none in vocoder training), every evidence
+   value finite, masg_tpu's three mechanical checks asserted (the
+   discriminator BCE logged finite and positive, the lambda 0 vs 1000 delta
+   > 1e-6, the copy-synthesis MCD reported) and its four learning gates
+   printed with their values (GE2E loss below 0.7x its first epoch, EER <
+   0.35, the wavs' median peak >= 0.1, their median F0 gender score in
+   (0.05, 0.95)): a learning gate is the outcome of one seeded run, and
+   `python -m masg_tpu_torch.demo.full_pipeline` asserts all seven; then
+   `demo.probe`'s copy synthesis of each speaker's ground truth (RMS,
+   full-scale share and F0 against the ground truth's);
+19. [dp] (inside 10's directory): two spawned gloo ranks sharing the card
    against one: the train variants, GE2E and the V1 GAN; a 2-replica
    serving engine; NCCL at world size 1 (`cli.train --multihost`);
-18. [tp]: four spawned gloo ranks sharing the card: rank 0's one-rank
+20. [tp]: four spawned gloo ranks sharing the card: rank 0's one-rank
    references, then the flagship train step on a 1 x 2 (data, model) mesh
    (plain with grad_acc_step 2, `--use_clf`, ganlike; 3 steps) and on 2 x 2
    (plain, 2 steps): gathered gradients, losses, launches per rank per
@@ -134,7 +158,7 @@ Phases (any failure exits non-zero; nothing is caught):
    step; float64 gradients on the plain path; dropout on (the replicated
    tensors' sha256 on both model ranks); a 1 x 2 checkpoint restored on one
    rank; then K1-K3 at 2 heads and at a rank's 1 head;
-19. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
+21. one `{"kernels": [...]}` line: K1-K4 once each, at the bfloat16 path's
    inputs, with the float32 figures as fields (`float32_forward`: K1 and K4
    per float32 forward; `float32_train_step`: K1, K2, K3 per float32 train
    step; `serve`: K1's and K4's launches under the 32 served requests and
@@ -144,8 +168,12 @@ Phases (any failure exits non-zero; nothing is caught):
    launches per MelGAN text->wav; `dump_mels` on K1: launches, batches and
    device time per batch; `trained_generator` on K4: launches per forward
    of the exported generator; `dp_train`, `dp_serve`, `tp_train`: launches
-   per rank and ms per step of [dp] and [tp]);
-20. the `{"ok": true, ...}` line, last.
+   per rank and ms per step of [dp] and [tp]; `v2`: K1's and K4's launches
+   per V2 text->wav, and on K4 the path's times and K4's device ms per
+   stage; `narrow_stages` on K4: the [K4] rows at C = 16 and 8 and the demo
+   vocoder's; `demo`: the launches of the demo's training and vocoding
+   stages);
+22. the `{"ok": true, ...}` line, last.
 
 Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K1 float32: |o| within 2e-5 (masg_tpu's flash bar), LSE within 1e-4;
@@ -157,7 +185,8 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - K4 float32: 2e-5 (18 chained convolutions summed in another order than
   cuDNN's, outputs up to ~8); bfloat16: 0.125 (each conv output is rounded
   to bfloat16 on both sides; a rounding flip early in the chain carries on:
-  4 ulps at magnitudes 4-8); a run from a later row: bit for bit.
+  4 ulps at magnitudes 4-8); a run from a later row: bit for bit. The
+  same bars at every width (C = 8 and 16 chain as many convolutions).
 - K2/K3 float32: dQ (at valid rows), dK, dV within 5e-3 (masg_tpu's flash-
   gradient bar; sums in another order give ~1e-6); bfloat16: atol = rtol =
   1e-2 (both sides round float32 sums to bfloat16, one ulp at |grad| up to
@@ -196,6 +225,11 @@ Tolerances (kernel vs plain, on the card, TF32 off everywhere):
 - MelGAN text->wav float32: mel_len identical, wav within 2 LSB (the main
   path's bar); streamed within 1 LSB of one-shot (masg_tpu's streaming
   bar).
+- V2 text->wav float32: mel_len identical, wav within 2 LSB (the main
+  path's bar).
+- demo: masg_tpu's thresholds as scripts/demo_full_pipeline.py asserts them
+  (:171, :196, :240-241, :281, :339-343, :378, :406); [demo] asserts the
+  mechanical three (:240-241, :281, :339-343) and prints the learning four.
 - tp, 1 x 2 and 2 x 2 vs one rank, float32: losses and grad_norm within
   1e-5 relative; each gathered gradient within 1e-2 of its tensor's largest
   |entry| plus 5e-6 (a gradient counted M times is off by >= 50 %; a ReLU
@@ -280,28 +314,46 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters, match=None):
-    """Mean device time of fn() in ms, from a torch.profiler window over
-    `iters` calls after one warm-up: the summed durations of the device
-    kernels whose name contains `match` (every kernel when None), so the
-    host's time between launches is left out."""
+def timed(fn):
+    """(host-clock seconds of fn() up to the device's end, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, r
+
+
+def device_events(fn, iters, match=None):
+    """The device events of a torch.profiler window over `iters` calls of
+    fn() after one warm-up. A window in which the profiler recorded no device
+    activity at all, or no kernel whose name contains `match`, is taken
+    again: CUPTI has delivered no records for a whole window, or (seen once,
+    after [tp]'s worker processes) none of the kernel asked for."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a window in which the profiler recorded no device activity at all is
-    # taken again: CUPTI has delivered no records for a whole window
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
-            break
-    kern = [e for e in dev if not getattr(e, "is_user_annotation", False)
-            and (match is None or match in e.name)]
+        if any(match is None or match in e.name for e in dev):
+            return dev
+    return []
+
+
+def device_ms(fn, iters, match=None):
+    """Mean device time of fn() in ms, from a torch.profiler window over
+    `iters` calls after one warm-up: the summed durations of the device
+    kernels whose name contains `match` (every kernel when None), so the
+    host's time between launches is left out."""
+    kern = [e for e in device_events(fn, iters, match)
+            if not getattr(e, "is_user_annotation", False) and (match is None or match in e.name)]
     assert kern, f"the profiler saw no device kernel matching {match!r}"
     return sum(e.time_range.end - e.time_range.start for e in kern) / iters / 1e3
 
@@ -364,7 +416,8 @@ def build_kernels():
     # any Dh or tile, the f32 K4 at either width
     f32_entries = ["flash_fwd_kernel<128,2>", "flash_fwd_kernel<128,4>", "flash_dkv_kernel<128>",
                    *(f"flash_dq_kernel<{dh},{ri}>" for dh in (16, 32, 64, 128) for ri in (2, 4)),
-                   "mrf_kernel<32>", "mrf_kernel<64>"]
+                   *(f"mrf_kernel<{c}>" for c in (8, 16, 32, 64)),
+                   "mrf_bf16_kernel<8>", "mrf_bf16_kernel<16>"]
     for entry in f32_entries:
         regs, spill = report[entry]
         print(f"[build] {entry}: {regs} registers, {spill} spill bytes (stores + loads)")
@@ -443,8 +496,8 @@ def sass_mma_counts(nvcc, libs):
     for (lib, entry), (hmma, hgmma) in sorted(counts.items()):
         print(f"[build] {lib}: {entry}: {hmma} HMMA, {hgmma} HGMMA")
     for base, want in (("flash_fwd_bf16_kernel", 4), ("flash_dq_bf16_kernel", 4),
-                       ("flash_dkv_bf16_kernel", 4), ("mrf_bf16_kernel", 2),
-                       ("mrf_kernel", 2)):
+                       ("flash_dkv_bf16_kernel", 4), ("mrf_bf16_kernel", 4),
+                       ("mrf_kernel", 4)):
         found = [(e, sum(c)) for (_, e), c in counts.items() if e.startswith(base + "<")]
         assert len(found) == want, (base, found)
         assert all(n > 0 for _, n in found), f"no tensor-core instruction in {found}"
@@ -527,54 +580,70 @@ def random_mrf_params(c, kernel_sizes, n_dil, gen, dtype):
     return blocks
 
 
-def check_mrf():
-    """Phase 4 at the V1 main-path stage shapes. Returns {dtype: {C: row}}."""
+def mrf_row(c, t, ks, dtype, gen):
+    """K4 at (B, t, c) with resblock kernels `ks` (dilations 1, 3, 5) against
+    its plain version, a run from a later row bit for bit, and its times and
+    bound. Returns the row."""
     import torch
 
     from masg_tpu_torch.ops.fused_mrf import (fused_mrf_stage, fused_mrf_stage_plain,
                                               pack_stage_weights)
 
-    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    dname = str(dtype).split(".")[-1]
+    ds = ((1, 3, 5),) * len(ks)
+    x = torch.randn(B, t, c, generator=gen).to(DEVICE, dtype)
+    bps = random_mrf_params(c, ks, 3, gen, dtype)
+    packed = pack_stage_weights(bps, ks, 3, dtype, DEVICE)
+    y = fused_mrf_stage(x, bps, ks, ds)
+    torch.cuda.synchronize()
+    y_ref = fused_mrf_stage_plain(x, bps, ks, ds)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    tol = 2e-5 if dtype == torch.float32 else 0.125
+    assert err <= tol, (dname, c, ks, err, tol)
+    # tile position: a run that starts s rows later (s not a multiple of the
+    # tile) gives the same bits at every row > 64 past the cut
+    s0 = 1000 + 37
+    y_cut = fused_mrf_stage(x[:2, s0:].contiguous(), bps, ks, ds)
+    same = torch.equal(y_cut[:, 65:], y[:2, s0 + 65:])
+    print(f"[K4] {dname} C={c} kernels {ks}: run from row {s0} equals the full run bit for "
+          f"bit at rows > 64 past the cut: {same}")
+    assert same, (dname, c, ks)
+    row = {"err": err, "ms": cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds, packed), 3),
+           "plain_ms": cuda_ms(lambda: fused_mrf_stage_plain(x, bps, ks, ds), 2),
+           "library_ms": None}
+    work = mrf_work(B, t, c, ks, 3, x.element_size())
+    row["bound_ms"], row["bound_by"] = bound(
+        *work, "float32_3xtf32" if dtype == torch.float32 else dname)
+    if dtype == torch.float32:
+        row["bound_f32_ms"] = bound(*work, dname)[0]
+        rate = f"3xTF32 rate; {row['bound_f32_ms']:.3f} ms at the CUDA cores' f32 rate"
+    else:
+        rate = "bf16 rate"
+    print(f"[K4] {dname} C={c} T={t} kernels {ks}: max err {err:.3g} (max |ref| "
+          f"{y_ref.float().abs().max().item():.3g}), kernel {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+          f"{rate})")
+    return row
+
+
+def check_mrf():
+    """Phase 4 at the V1 main-path stage shapes (C = 64, 32), at V2's narrow
+    stages (C = 16, 8 at the same T: V2 has 128 initial channels), and at
+    C = 16 with the demo vocoder's two resblocks (3, 7). Returns ({dtype:
+    {C: row}} of V1, {dtype: {C: row}} of V2 with the demo's row under
+    "demo")."""
+    import torch
+
     gen = torch.Generator().manual_seed(1)
-    out = {}
+    v1, narrow = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for c, t in ((64, T_MEL * 128), (32, T_MEL * 256)):
-            x = torch.randn(B, t, c, generator=gen).to(DEVICE, dtype)
-            bps = random_mrf_params(c, ks, 3, gen, dtype)
-            packed = pack_stage_weights(bps, ks, 3, dtype, DEVICE)
-            y = fused_mrf_stage(x, bps, ks, ds)
-            torch.cuda.synchronize()
-            y_ref = fused_mrf_stage_plain(x, bps, ks, ds)
-            err = (y.float() - y_ref.float()).abs().max().item()
-            tol = 2e-5 if dtype == torch.float32 else 0.125
-            assert err <= tol, (dname, c, err, tol)
-            # tile position: a run that starts s rows later (s not a multiple
-            # of the tile) gives the same bits at every row > 64 past the cut
-            s0 = 1000 + 37
-            y_cut = fused_mrf_stage(x[:2, s0:].contiguous(), bps, ks, ds)
-            same = torch.equal(y_cut[:, 65:], y[:2, s0 + 65:])
-            print(f"[K4] {dname} C={c}: run from row {s0} equals the full run bit for bit "
-                  f"at rows > 64 past the cut: {same}")
-            assert same, (dname, c)
-            row = {"err": err,
-                   "ms": cuda_ms(lambda: fused_mrf_stage(x, bps, ks, ds, packed), 3),
-                   "plain_ms": cuda_ms(lambda: fused_mrf_stage_plain(x, bps, ks, ds), 2),
-                   "library_ms": None}
-            work = mrf_work(B, t, c, ks, 3, x.element_size())
-            row["bound_ms"], row["bound_by"] = bound(
-                *work, "float32_3xtf32" if dtype == torch.float32 else dname)
-            if dtype == torch.float32:
-                row["bound_f32_ms"] = bound(*work, dname)[0]
-                rate = f"3xTF32 rate; {row['bound_f32_ms']:.3f} ms at the CUDA cores' f32 rate"
-            else:
-                rate = "bf16 rate"
-            out.setdefault(dname, {})[c] = row
-            print(f"[K4] {dname} C={c} T={t}: max err {err:.3g} (max |ref| "
-                  f"{y_ref.float().abs().max().item():.3g}), kernel {row['ms']:.3f} ms, "
-                  f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-                  f"({row['bound_by']}, {rate})")
-    return out
+            v1.setdefault(dname, {})[c] = mrf_row(c, t, (3, 7, 11), dtype, gen)
+        for c, t in ((16, T_MEL * 128), (8, T_MEL * 256)):
+            narrow.setdefault(dname, {})[c] = mrf_row(c, t, (3, 7, 11), dtype, gen)
+        narrow[dname]["demo"] = mrf_row(16, T_MEL * 128, (3, 7), dtype, gen)
+    return v1, narrow
 
 
 def flagship_config():
@@ -586,8 +655,9 @@ def flagship_config():
                             speakers={f"spk{i}": [i, "M", "ja"] for i in range(16)})
 
 
-def build_path(cfg, dtype, kernels):
-    """(FastSpeech2, Vocoder) on the card; `kernels` selects K1/K4 or the plain ops."""
+def build_path(cfg, dtype, kernels, config_dir=None):
+    """(FastSpeech2, Vocoder) on the card; `kernels` selects K1/K4 or the plain
+    ops; `config_dir` may hold a hifigan_config.json (default: V1)."""
     from masg_tpu_torch.compat.from_jax import with_duration_bias
     from masg_tpu_torch.infer.synthesis import load_model
     from masg_tpu_torch.infer.vocoder import get_vocoder
@@ -595,7 +665,8 @@ def build_path(cfg, dtype, kernels):
     model = load_model(cfg, device=DEVICE, use_flash=kernels, seed=0)
     model.load_state_dict(with_duration_bias(model.state_dict(), math.log(5.0)))
     model.to(dtype)
-    vocoder = get_vocoder(cfg.model, device=DEVICE, dtype=dtype, fused_mrf=kernels, seed=1)
+    vocoder = get_vocoder(cfg.model, config_dir, device=DEVICE, dtype=dtype,
+                          fused_mrf=kernels, seed=1)
     return model, vocoder
 
 
@@ -1551,19 +1622,30 @@ def ge2e_path(smi, root):
     return chunks
 
 
-def adversarial_batch():
-    """[train]'s batch with languages and genders that differ across rows, a
-    speaker shuffle (`reorder`) and the label jitter of 5 chunks a row."""
+# [adversarial]'s frames a row: four whole discriminator chunks and 149
+# frames of the fifth, which `chunk_mels` closes with one zero frame
+ADV_T_MEL = 749
+
+
+def adversarial_batch(t_mel=T_MEL, fill=False):
+    """[train]'s batch at `t_mel` frames with languages and genders that differ
+    across rows, a speaker shuffle (`reorder`) and the label jitter of each
+    chunk. `fill`: every row's durations sum to `t_mel` (the last phone takes
+    the rest), so no row ends in padded frames."""
     import numpy as np
 
-    batch = example_inputs(B=B, L=L, T=T_MEL)
+    batch = example_inputs(B=B, L=L, T=t_mel)
+    if fill:
+        for i, n in enumerate(batch["src_lens"]):
+            batch["durations"][i, n - 1] += t_mel - batch["durations"][i].sum()
+        batch["mel_lens"] = batch["durations"].sum(1).astype(np.int32)
     rng = np.random.default_rng(11)
     meta = np.zeros((B, 4), np.float32)
     meta[np.arange(B), np.arange(B) % 2] = 1.0
     meta[np.arange(B), 2 + (np.arange(B) // 2) % 2] = 1.0
     batch["speaker_meta"] = meta
     batch["reorder"] = rng.permutation(B).astype(np.int32)
-    batch["lang_jitter"] = rng.uniform(size=B * (T_MEL // 150 + 1)).astype(np.float32)
+    batch["lang_jitter"] = rng.uniform(size=B * (t_mel // 150 + 1)).astype(np.float32)
     return batch
 
 
@@ -1653,7 +1735,11 @@ def branch_grad_errs(got, want):
 def adversarial_path(smi):
     """Phase [adversarial]: the `--use_clf` step (clf_featurization model and
     ge2e) and the ganlike step at the flagship width and [train]'s batch, a
-    GE2E discriminator of [ge2e]'s width, f32, dropout off, the same injected
+    GE2E discriminator of [ge2e]'s width as the port builds it (seed 1), f32,
+    dropout off, on [train]'s batch at ADV_T_MEL frames that every row fills
+    (a chunk of padded frames, which the discriminator's zero biases carry
+    to an embedding norm near 0 and gradients of ~1e13, is left out), the
+    same injected
     reorder / label jitter: kernel path against plain path (losses with dloss,
     every gradient, BatchNorm statistics), launches per step (K1, K2, K3: 20
     each, two forwards of 10 FFT blocks), ms per step for both paths (median of
@@ -1664,12 +1750,13 @@ def adversarial_path(smi):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
     from masg_tpu_torch.train.step import batch_to_device
 
     cfg = flagship_config()
-    db = batch_to_device(adversarial_batch(), DEVICE, torch.float32)
-    db64 = batch_to_device(adversarial_batch(), DEVICE, torch.float64)
+    from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
+
+    db = batch_to_device(adversarial_batch(ADV_T_MEL, fill=True), DEVICE, torch.float32)
+    db64 = batch_to_device(adversarial_batch(ADV_T_MEL, fill=True), DEVICE, torch.float64)
     torch.manual_seed(1)
     disc = SpeechEmbedder()
     kernel_fields = {}
@@ -2834,13 +2921,6 @@ def melgan_path(smi):
           f"|sample| {level}")
     assert lsb <= 2 and level > 100
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, r
-
     from masg_tpu_torch.infer.synthesis import synthesize_batch
 
     walls = {(k, part): [] for k in (True, False) for part in ("text2wav", "vocoder")}
@@ -2886,6 +2966,183 @@ def melgan_path(smi):
     print(f"[melgan] ServingEngine dispatch with MelGAN, bucket 128, B = 1: mel_len "
           f"{r['mel_len']}, {t * 1e3:.1f} ms, launches {counts_srv}")
     return counts
+
+
+# upstream HiFi-GAN's universal V2 (jik876/hifi-gan config_v2.json): 128
+# initial channels, so its four MRF stages run at C = 64, 32, 16 and 8
+V2_CONFIG = {
+    "resblock": "1", "num_gpus": 0, "batch_size": 16, "learning_rate": 0.0002,
+    "adam_b1": 0.8, "adam_b2": 0.99, "lr_decay": 0.999, "seed": 1234,
+    "upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+    "upsample_initial_channel": 128, "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "segment_size": 8192, "num_mels": 80, "num_freq": 1025, "n_fft": 1024, "hop_size": 256,
+    "win_size": 1024, "sampling_rate": 22050, "fmin": 0, "fmax": 8000, "fmax_for_loss": None,
+}
+
+
+def device_ms_by_kernel(fn, pattern, want, iters=3):
+    """{template argument: device ms per launch} of the kernels whose name
+    matches `pattern` (a regex with one group), averaged over the launches a
+    torch.profiler window over `iters` calls of fn() recorded after a
+    warm-up (CUPTI may drop records, so the mean is over those it kept). A
+    window that misses one of the arguments in `want` is taken again, up to
+    three times."""
+    import re
+
+    for _ in range(3):
+        spans = {}
+        for e in device_events(fn, iters):
+            m = re.search(pattern, e.name)
+            if m:
+                spans.setdefault(m.group(1), []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+        if set(want) <= set(spans):
+            return {k: statistics.mean(v) for k, v in spans.items()}
+    raise AssertionError(f"the profiler saw {sorted(spans)} of {sorted(want)} ({pattern!r})")
+
+
+def v2_path(smi, root):
+    """Phase [v2]: text->wav at B = 16 through upstream's universal V2
+    generator (config_v2.json's values as a hifigan_config.json, seeded random
+    weights) behind the f32 flagship FastSpeech2: K1 exactly 10 and K4 4
+    launches per forward (every MRF stage, C = 64, 32, 16, 8); the kernel path
+    against the plain path (mel_len identical, wav within 2 LSB); RTF and
+    vocoder ms (medians of 3, in turns); K4's device time per stage. Returns
+    the kernels-line field."""
+    import numpy as np
+    import torch
+
+    from masg_tpu_torch.infer.synthesis import synthesize_batch
+
+    cfg = flagship_config()
+    cfg_dir = os.path.join(root, "v2")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, "hifigan_config.json"), "w") as f:
+        json.dump(V2_CONFIG, f)
+    batch = example_inputs(B=B, L=L, T=T_MEL)
+    paths = {k: build_path(cfg, torch.float32, k, cfg_dir) for k in (True, False)}
+    gen = paths[True][1].generator
+    assert gen.conv_pre.out_channels == 128 and len(gen.resblocks) == 12
+    with torch.inference_mode():
+        reset_counts()
+        outk, wk = text_to_wav(*paths[True], batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        outp, wp = text_to_wav(*paths[False], batch)
+    assert counts == {"K1": 10, "K2": 0, "K3": 0, "K4": 4}, counts
+    assert torch.equal(outk.mel_len, outp.mel_len) and int(outk.mel_len.min()) > 0
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in zip(wk, wp))
+    level = max(int(np.abs(w.astype(np.int32)).max()) for w in wk)
+    print(f"[v2] text->wav B={B}, float32, universal V2 (seeded): launches per forward "
+          f"{counts}; kernel vs plain mel_len identical, wav max {lsb} LSB (tol 2), peak "
+          f"|sample| {level}")
+    assert lsb <= 2 and level > 100
+
+    walls = {(k, part): [] for k in (True, False) for part in ("text2wav", "vocoder")}
+    with torch.inference_mode():
+        mel = synthesize_batch(paths[True][0], batch, max_mel_len=T_MEL).postnet_mel
+        for r in range(3):
+            for k in ((True, False) if r % 2 == 0 else (False, True)):
+                model, vocoder = paths[k]
+                walls[(k, "text2wav")].append(timed(lambda: text_to_wav(model, vocoder,
+                                                                        batch))[0])
+                walls[(k, "vocoder")].append(timed(lambda: vocoder(mel))[0])
+        per_stage = device_ms_by_kernel(lambda: paths[True][1](mel), r"mrf_kernel<(\d+)>",
+                                        ("64", "32", "16", "8"))
+    audio_s = int(outk.mel_len.sum()) * HOP / SAMPLE_RATE
+    med = {key: statistics.median(v) * 1e3 for key, v in walls.items()}
+    for k in (True, False):
+        print(f"[v2] {'kernel' if k else 'plain'} path: text->wav {med[(k, 'text2wav')]:.1f} ms "
+              f"(RTF {audio_s / med[(k, 'text2wav')] * 1e3:.1f}x on {audio_s:.1f} s of audio), "
+              f"V2 vocoder {med[(k, 'vocoder')]:.1f} ms (medians of 3, in turns) on {smi}")
+    stages = {int(c): per_stage[c] for c in sorted(per_stage, key=int, reverse=True)}
+    assert sorted(stages) == [8, 16, 32, 64], stages
+    print(f"[v2] K4 device ms per stage (C: ms) {stages}, {sum(stages.values()):.3f} ms a "
+          f"forward")
+    return {"path": "text->wav, universal V2, float32", "launches_per_forward": counts["K4"],
+            "k1_launches_per_forward": counts["K1"],
+            "k4_device_ms_per_stage": stages, "text2wav_ms": med[(True, "text2wav")],
+            "plain_text2wav_ms": med[(False, "text2wav")], "vocoder_ms": med[(True, "vocoder")],
+            "plain_vocoder_ms": med[(False, "vocoder")],
+            "rtf": audio_s / med[(True, "text2wav")] * 1e3}
+
+
+# masg_tpu's seven demo checks: the mechanics of the pipeline, which the port
+# must give whatever its random numbers, and the learning gates, outcomes of
+# one seeded run (scripts/demo_full_pipeline.py:171, 196, 378, 406)
+DEMO_MECHANICS = ("clf_bce_logged_finite_positive", "clf_liveness_delta_above_1e-6",
+                  "copy_synthesis_mcd_reported")
+DEMO_LEARNING = ("ge2e_loss_falls", "ge2e_eer_below_0.35", "wav_peak_median_at_least_0.1",
+                 "f0_score_median_in_(0.05,0.95)")
+
+
+def _finite(value):
+    if isinstance(value, dict):
+        return all(_finite(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(_finite(v) for v in value)
+    return math.isfinite(float(value))
+
+
+# the one cut of the demo's budgets: at masg_tpu's 4000 vocoder steps the
+# phase took 474-500 s on the card (the steps 328-344 s of it), over 6
+# minutes; 1000 steps, where masg_tpu's audibility probe has the amplitude
+# track the ground truth (scripts/probe_vocoder_audibility.py), pass the
+# audibility gate (median peak >= 0.1 of full scale)
+DEMO_VOCODER_STEPS = 1000
+
+
+def demo_path(smi, root):
+    """Phase [demo]: `masg_tpu_torch.demo.full_pipeline` on the card at
+    masg_tpu's defaults (4 speakers x 20 utterances, 800 + 400 FastSpeech2
+    steps, 40 GE2E epochs) but for `DEMO_VOCODER_STEPS`. Asserts the pipeline's
+    mechanics: every stage ran, K1-K3 alike in both FastSpeech2 trainings and
+    K4 in none, K4 4 a vocoder forward (16 in copy synthesis, 24 in the
+    wavs), every evidence value finite, and masg_tpu's three mechanical
+    checks (BCE logged, finite, > 0; the lambda 0 vs 1000 delta > 1e-6; the
+    copy-synthesis MCD); prints its four learning gates with their values
+    (`full_pipeline.main`, the demo's command, asserts all seven), and the
+    copy synthesis of `demo.probe` (the vocoder's RMS, full-scale share and
+    F0 against the ground truth's, where the F0 check fails). Returns the
+    kernels-line field."""
+    from masg_tpu_torch.demo import full_pipeline, probe
+
+    t0 = time.time()
+    result = full_pipeline.run(os.path.join(root, "demo"), vocoder_steps=DEMO_VOCODER_STEPS,
+                               device="cuda")
+    wall = time.time() - t0
+    for name, t, n in result["stages"]:
+        print(f"[demo] +{t:7.1f} s {name}: launches {n}")
+    checks = result["checks"]
+    assert sorted(checks) == sorted(DEMO_MECHANICS + DEMO_LEARNING), sorted(checks)
+    for k in DEMO_MECHANICS + DEMO_LEARNING:
+        ok, v = checks[k]
+        kind = "mechanics" if k in DEMO_MECHANICS else "learning gate"
+        print(f"[demo] check {k} ({kind}): {'holds' if ok else 'FAILS'} ({v})")
+    print(f"[demo] evidence {json.dumps(result['evidence'])}")
+    print(f"[demo] the full pipeline in {wall:.1f} s on {smi}")
+    out = os.path.join(root, "demo")
+    copy = probe.copy_synthesis_rows(
+        os.path.join(out, "vocoder", f"generator_{DEMO_VOCODER_STEPS}.pth.tar"),
+        full_pipeline.S.DEMO_HIFIGAN, probe.speaker_map(out), "cuda")
+    for spk, r in sorted(copy.items()):
+        print(f"[demo] copy synthesis (demo.probe), {spk}: RMS {r['rms']:.3f} against the ground "
+              f"truth's {r['gt_rms']:.3f}, {100 * r['full_scale_share']:.1f} % of samples at full "
+              f"scale, F0 {r['f0']:.1f} Hz against {r['gt_f0']:.1f} (0: unvoiced)")
+    assert len(result["stages"]) == 11 and _finite(result["evidence"]), result["evidence"]
+    by_stage = [n for _, _, n in result["stages"]]
+    pretrain, clf, voc_train, copy_syn, wavs = (by_stage[i] for i in (4, 5, 6, 7, 9))
+    for n in (pretrain, clf):
+        assert n["K1"] == n["K2"] == n["K3"] > 0 and n["K4"] == 0, n
+    assert voc_train["K4"] == 0 and copy_syn["K4"] == 4 * 4 and wavs["K4"] == 4 * 2 * 3, \
+        (voc_train, copy_syn, wavs)
+    assert all(checks[k][0] for k in DEMO_MECHANICS), {k: checks[k] for k in DEMO_MECHANICS}
+    return {"path": f"demo.full_pipeline at masg_tpu's defaults, --vocoder_steps "
+                    f"{DEMO_VOCODER_STEPS}", "seconds": wall,
+            "checks": checks,
+            "launches": {"fs2_pretrain": pretrain, "use_clf": clf, "copy_synthesis": copy_syn,
+                         "demo_wavs": wavs}}
 
 
 # ---------------------------------------------------------------------------
@@ -3704,15 +3961,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+
+    def lap(name):
+        print(f"[time] {name} done at {time.time() - t_start:.1f} s", flush=True)
+
     smi = header()
     build_kernels()
     check_flash()
-    mrf = check_mrf()
+    mrf, mrf_narrow = check_mrf()
     check_flash_bwd()
+    lap("[build], [K1], [K4], [K2/K3]")
     results = main_path(smi)
     profile_inference(results, smi)
     entries = main_path_kernel_times(results, mrf)
+    lap("[main], [profile], [kernels]")
     serve = serve_path(smi)
+    lap("[serve]")
     for e, name in zip(entries, ("K1", "K4")):
         e["serve"] = {"launches": serve["launches"][name],
                       "dispatches": serve["n_dispatches"],
@@ -3720,6 +3984,7 @@ def main() -> int:
     train = train_path(smi)
     param_storage_path(train, smi)
     profile_train_step(train, smi)
+    lap("[train], [param_storage], [profile]")
     import shutil
     import tempfile
 
@@ -3729,8 +3994,11 @@ def main() -> int:
         cfg_dir = trainer_path(os.path.join(root, "trainer"))
         dump, mel_dir = dump_mels_path(smi, cfg_dir, root)
         finetune = vocoder_finetune_path(smi, root, mel_dir)
+        lap("[trainer], [dump_mels], [vocoder_finetune]")
         dp = dp_path(smi, os.path.join(root, "trainer", "pre"), root)
+        lap("[dp]")
         tp = tp_path(smi)
+        lap("[tp]")
     finally:
         shutil.rmtree(root)
     train_entries, k1_train = train_kernel_times(train, smi)
@@ -3748,7 +4016,29 @@ def main() -> int:
         jdit = jdit_path(smi, root)
     finally:
         shutil.rmtree(root)
+    lap("[ge2e], [adversarial], [vocoder_train], [preprocess], [jdit]")
     melgan = melgan_path(smi)
+    lap("[melgan]")
+    root = tempfile.mkdtemp(prefix="chip_smoke_demo_", dir=os.path.join(REPO, "build"))
+    try:
+        v2 = v2_path(smi, root)
+        lap("[v2]")
+        demo = demo_path(smi, root)
+        lap("[demo]")
+    finally:
+        shutil.rmtree(root)
+    k4 = entries[3]
+    k4["narrow_stages"] = {
+        "path": "V2's stages C = 16 (T = 81,920) and C = 8 (T = 163,840), B = 16; 'demo': "
+                "C = 16 with kernels (3, 7)",
+        **{d: {str(c): {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "err")}
+               for c, r in rows.items()} for d, rows in mrf_narrow.items()}}
+    k4["v2"] = v2
+    k4["demo"] = {"launches": demo["launches"], "checks": demo["checks"],
+                  "seconds": demo["seconds"]}
+    entries[0]["v2"] = {"path": v2["path"], "launches_per_forward": v2["k1_launches_per_forward"]}
+    for e, name in zip(entries[:3], ("K1", "K2", "K3")):
+        e["demo"] = {stage: n[name] for stage, n in demo["launches"].items()}
     for e, name in zip(entries[:3], ("K1", "K2", "K3")):
         e["adversarial"] = adversarial[name]
         e["jdit"] = jdit[name]

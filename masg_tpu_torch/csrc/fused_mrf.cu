@@ -65,6 +65,22 @@
 // product, and the partial-sum adds), far below the TF32 rate (495 TFLOP/s
 // dense, 165 TFLOP/s of f32 work as three products); at C = 64 also the
 // weights through an L1 that 224 KB of shared memory leaves at ~28 KB.
+//
+// Narrow stages, C = 16 and 8 (the last two stages of HiFi-GAN V2 and of any
+// generator of 128 initial channels; the wrapper runs C = 1, 2, 4 at C = 8
+// on zero-padded channels, which stay exactly 0 through every conv, lrelu
+// and residual): the same structure with the tiling cut to the width. f32
+// takes all C/8 n-tiles in one pass, and chains of one k-step at C = 8 (two
+// at C = 16). bf16 at C = 16 takes one k-step of 16 channels and one pair of
+// n-tiles a tap; at C = 8 it takes mma.sync m16n8k8 (bf16) products, with
+// ldmatrix.x2 on rows of 16 bytes (8 consecutive rows fill a 128-byte line,
+// so no swizzle) and one register of weights a lane and tap, rather than K
+// zero-padded to 16, which would double the tensor-core work and the
+// buffers for nothing. Each width takes the widest window its two buffers
+// leave in shared memory (f32 1664 / 3456 rows, bf16 3456 / 7040 at C = 16
+// / 8), so the halo recompute stays under 1.09x. What bounds it: each A
+// fragment feeds only C/8 n-tiles, so its load, lrelu and (f32) TF32 split
+// weigh more per product than at C = 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,22 +113,32 @@ __device__ __forceinline__ float lrelu_f32(float x) { return fmaxf(x, 0.1f * x);
 constexpr int FNW = 12;        // warps per block: 3 per SM sub-partition
 constexpr int FNT = 32 * FNW;  // threads per block
 constexpr int FMB = 2;         // 16-row m-tiles per warp tile
-constexpr int FNP = 4;         // n-tiles (8 output channels each) per pass
+constexpr int FNP = 4;         // n-tiles (8 output channels each) per pass, at most
 
 template <int C>
 struct FGeo {
-  static constexpr int W = C == 64 ? 384 : 768;  // window rows
+  // window rows: the widest that two f32 buffers leave in shared memory
+  // below C = 64 (224 KB at C = 64, 208 KB at 32, 216 KB at 16, 220 KB at 8)
+  static constexpr int W = C == 64 ? 384 : C == 32 ? 768 : C == 16 ? 1664 : 3456;
   static constexpr int TILE = W - 2 * HALO;      // output rows per block
   static constexpr int ROWS = W + 2 * PADR;      // buffer rows with margins
   static constexpr int KK = C / 8;               // k-steps per tap
   static constexpr int NTN = C / 8;              // n-tiles (output channels / 8)
+  static constexpr int NP = NTN < FNP ? NTN : FNP;  // n-tiles per pass
+  static constexpr int NN = NP < 2 ? NP : 2;        // n-tiles per group of chains
+  static constexpr int KS = KK < 2 ? KK : 2;        // k-steps per chain
   static constexpr int TAP = KK * NTN * 32;      // float4s of packed weights per tap
   static constexpr size_t SMEM = 2 * sizeof(float) * ROWS * C;
   static_assert(TILE % (16 * FMB) == 0, "m-tile groups must not straddle the tile");
   static_assert(SMEM <= 232448, "two f32 buffers must fit a block's shared memory");
-  static_assert(NTN % FNP == 0, "whole passes of 32 output channels");
-  static_assert(KK % 2 == 0, "k-steps go in pairs");
+  static_assert(NTN % NP == 0 && NP % NN == 0, "whole passes of whole groups");
+  static_assert(KK % KS == 0, "whole chains of k-steps");
 };
+
+// the f32 buffers' swizzle: rows of 64 (C = 16) and 32 bytes (C = 8) share a
+// 128-byte line with 1 and 3 neighbours, so the key is row / 2 and row / 4
+template <int C>
+using FSw = f32::Swz<C, C == 16 ? 1 : C == 8 ? 2 : 0>;
 
 // One conv over the m-tiles [m_lo, m_hi) of the window, the f32 twin of
 // conv_mma below. Each product a.w is lo(a).hi(w) + hi(a).lo(w) + hi(a).hi(w)
@@ -127,7 +153,7 @@ __device__ __forceinline__ void conv_tf32(float* __restrict__ Hs, float* __restr
                                           bool first_r, bool last_r, float n_res,
                                           float* __restrict__ ab, float* __restrict__ ob) {
   using G = FGeo<C>;
-  using Sw = f32::Swz<C>;
+  using Sw = FSw<C>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int half = (k - 1) / 2;
@@ -135,29 +161,30 @@ __device__ __forceinline__ void conv_tf32(float* __restrict__ Hs, float* __restr
   const int n_groups = (m_hi - m_lo) / FMB;
   for (int grp = warp; grp < n_groups; grp += FNW) {
     const int row0 = (m_lo + grp * FMB) * 16;  // window row of the warp tile
-    // 32 output channels a pass (two passes at C = 64): 32 accumulators
+    // 32 output channels a pass (two passes at C = 64, C at C <= 32): up to
+    // 32 accumulators
 #pragma unroll 1
-    for (int pass = 0; pass < G::NTN / FNP; ++pass) {
-      float acc[FMB][FNP][4];
+    for (int pass = 0; pass < G::NTN / G::NP; ++pass) {
+      float acc[FMB][G::NP][4];
 #pragma unroll
       for (int i = 0; i < FMB; ++i)
 #pragma unroll
-        for (int n = 0; n < FNP; ++n)
+        for (int n = 0; n < G::NP; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
 
       for (int j = 0; j < k; ++j) {
         // buffer row this lane addresses for ldmatrix (margin rows included)
         const int rs = row0 + (j - half) * d + PADR + (lane & 15);
-        const float4* wj = wf + (size_t)j * G::TAP + pass * FNP * 32 + lane;
-        // two k-steps an iteration, not unrolled further: with 3 warps per
-        // SM sub-partition a thread has at most 168 registers
+        const float4* wj = wf + (size_t)j * G::TAP + pass * G::NP * 32 + lane;
+        // KS k-steps (two, one at C = 8) an iteration, not unrolled further:
+        // with 3 warps per SM sub-partition a thread has at most 168 registers
 #pragma unroll 1
-        for (int kk = 0; kk < G::KK; kk += 2) {
-          // the A fragments of the warp tile's m-tiles at both k-steps, split
-          uint32_t ah[2][FMB][4], al[2][FMB][4];
+        for (int kk = 0; kk < G::KK; kk += G::KS) {
+          // the A fragments of the warp tile's m-tiles at the KS k-steps, split
+          uint32_t ah[G::KS][FMB][4], al[G::KS][FMB][4];
 #pragma unroll
-          for (int s = 0; s < 2; ++s)
+          for (int s = 0; s < G::KS; ++s)
 #pragma unroll
             for (int i = 0; i < FMB; ++i) {
               uint32_t a[4];
@@ -171,15 +198,15 @@ __device__ __forceinline__ void conv_tf32(float* __restrict__ Hs, float* __restr
                 al[s][i][e] = mma::to_tf32(x - __uint_as_float(ah[s][i][e]));
               }
             }
-          // two n-tiles at a time: 2 FMB independent chains of six products
-          // (three per k-step), issued product by product
+          // NN n-tiles (two, one at C = 8) at a time: NN FMB independent
+          // chains of 3 KS products, issued product by product
 #pragma unroll
-          for (int n0 = 0; n0 < FNP; n0 += 2) {
-            uint32_t bh[2][2][2], bl[2][2][2];
+          for (int n0 = 0; n0 < G::NP; n0 += G::NN) {
+            uint32_t bh[G::KS][G::NN][2], bl[G::KS][G::NN][2];
 #pragma unroll
-            for (int s = 0; s < 2; ++s)
+            for (int s = 0; s < G::KS; ++s)
 #pragma unroll
-              for (int nn = 0; nn < 2; ++nn) {
+              for (int nn = 0; nn < G::NN; ++nn) {
                 const float4 w = __ldg(wj + ((kk + s) * G::NTN + n0 + nn) * 32);
                 bh[s][nn][0] = __float_as_uint(w.x);
                 bh[s][nn][1] = __float_as_uint(w.y);
@@ -187,37 +214,37 @@ __device__ __forceinline__ void conv_tf32(float* __restrict__ Hs, float* __restr
                 bl[s][nn][1] = mma::to_tf32(w.w);
               }
             // the tensor cores add into their accumulator with truncation,
-            // so a long chain drifts; each pair of k-steps starts from 0 and
-            // joins the sum by a rounded f32 add
-            float part[FMB][2][4];
+            // so a long chain drifts; each chain of KS k-steps starts from 0
+            // and joins the sum by a rounded f32 add
+            float part[FMB][G::NN][4];
 #pragma unroll
             for (int i = 0; i < FMB; ++i)
 #pragma unroll
-              for (int nn = 0; nn < 2; ++nn)
+              for (int nn = 0; nn < G::NN; ++nn)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) part[i][nn][e] = 0.f;
 #pragma unroll
-            for (int s = 0; s < 2; ++s) {
+            for (int s = 0; s < G::KS; ++s) {
 #pragma unroll
               for (int i = 0; i < FMB; ++i)
 #pragma unroll
-                for (int nn = 0; nn < 2; ++nn)
+                for (int nn = 0; nn < G::NN; ++nn)
                   mma::mma_tf32(part[i][nn], al[s][i], bh[s][nn][0], bh[s][nn][1]);
 #pragma unroll
               for (int i = 0; i < FMB; ++i)
 #pragma unroll
-                for (int nn = 0; nn < 2; ++nn)
+                for (int nn = 0; nn < G::NN; ++nn)
                   mma::mma_tf32(part[i][nn], ah[s][i], bl[s][nn][0], bl[s][nn][1]);
 #pragma unroll
               for (int i = 0; i < FMB; ++i)
 #pragma unroll
-                for (int nn = 0; nn < 2; ++nn)
+                for (int nn = 0; nn < G::NN; ++nn)
                   mma::mma_tf32(part[i][nn], ah[s][i], bh[s][nn][0], bh[s][nn][1]);
             }
 #pragma unroll
             for (int i = 0; i < FMB; ++i)
 #pragma unroll
-              for (int nn = 0; nn < 2; ++nn)
+              for (int nn = 0; nn < G::NN; ++nn)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[i][n0 + nn][e] += part[i][nn][e];
           }
@@ -236,8 +263,8 @@ __device__ __forceinline__ void conv_tf32(float* __restrict__ Hs, float* __restr
           const bool inside = pos >= 0 && pos < t_len;
           const bool out_row = ends && row >= HALO && row < HALO + G::TILE && pos < t_len;
 #pragma unroll
-          for (int n = 0; n < FNP; ++n) {
-            const int col = (pass * FNP + n) * 8 + 2 * tq;
+          for (int n = 0; n < G::NP; ++n) {
+            const int col = (pass * G::NP + n) * 8 + 2 * tq;
             const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
             const float v0 = inside ? acc[i][n][2 * hr] + bb.x : 0.f;
             const float v1 = inside ? acc[i][n][2 * hr + 1] + bb.y : 0.f;
@@ -272,7 +299,7 @@ __global__ void __launch_bounds__(FNT, 1)
 mrf_kernel(const float* __restrict__ x, float* __restrict__ out, const float4* __restrict__ wf,
            const float* __restrict__ bias, float* __restrict__ accbuf, int t_len, MrfParams p) {
   using G = FGeo<C>;
-  using Sw = f32::Swz<C>;
+  using Sw = FSw<C>;
   constexpr int CH = C / 4;  // 16-byte chunks per row
   extern __shared__ __align__(128) float fsm[];
   float* Hs = fsm;               // h
@@ -330,15 +357,21 @@ constexpr int MB = 2;          // 16-row m-tiles per warp tile
 
 template <int C>
 struct TGeo {
-  static constexpr int W = C == 64 ? 768 : 1536;  // window rows
+  // window rows: the widest that two bf16 buffers leave in shared memory
+  // below C = 64 (208 KB at C = 64, 200 KB at 32, 220 KB at 16, 222 KB at 8)
+  static constexpr int W = C == 64 ? 768 : C == 32 ? 1536 : C == 16 ? 3456 : 7040;
   static constexpr int TILE = W - 2 * HALO;       // output rows per block
   static constexpr int ROWS = W + 2 * PADR;       // buffer rows with margins
-  static constexpr int KK = C / 16;               // k-steps per tap
+  // C = 8 takes m16n8k8 products (one k-step of 8 channels, one n-tile, one
+  // 32-bit register of two bf16 a lane and tap), the wider C m16n8k16
+  static constexpr bool K8 = C == 8;
+  static constexpr int KK = K8 ? 1 : C / 16;      // k-steps per tap
   static constexpr int NTN = C / 8;               // n-tiles (output channels / 8)
   static constexpr int NTP = C / 16;              // n-tile pairs (16 bytes a lane)
-  static constexpr int TAP = KK * NTP * 32;       // uint4s of packed weights per tap
+  static constexpr int TAP = K8 ? 8 : KK * NTP * 32;  // uint4s of packed weights per tap
   static constexpr size_t SMEM = 2 * sizeof(__nv_bfloat16) * ROWS * C;
   static_assert(TILE % (16 * MB) == 0, "m-tile groups must not straddle the tile");
+  static_assert(SMEM <= 232448, "two bf16 buffers must fit a block's shared memory");
 };
 
 __device__ __forceinline__ float rnd_bf16(float x) {
@@ -385,28 +418,46 @@ __device__ __forceinline__ void conv_mma(__nv_bfloat16* __restrict__ Hs,
     for (int j = 0; j < k; ++j) {
       // buffer row this lane addresses for ldmatrix (margin rows included)
       const int rs = row0 + (j - half) * d + PADR + (lane & 15);
-      const uint4* wj = wf + (size_t)j * G::TAP + lane;
-#pragma unroll
-      for (int kk = 0; kk < G::KK; ++kk) {
-        uint32_t bfr[G::NTN][2];
-#pragma unroll
-        for (int np = 0; np < G::NTP; ++np) {
-          const uint4 w = __ldg(wj + (kk * G::NTP + np) * 32);
-          bfr[2 * np][0] = w.x;
-          bfr[2 * np][1] = w.y;
-          bfr[2 * np + 1][0] = w.z;
-          bfr[2 * np + 1][1] = w.w;
-        }
+      if constexpr (G::K8) {
+        // rows of 8 channels: ldmatrix.x2 of rows rs .. rs + 15 is the A
+        // fragment, one register of the tap's weights the B fragment
+        const uint32_t b0 =
+            __ldg(reinterpret_cast<const uint32_t*>(wf + (size_t)j * G::TAP) + lane);
 #pragma unroll
         for (int i = 0; i < MB; ++i) {
-          uint32_t a[4];
-          mma::ldsm_x4(a, src_s + 2 * Sw::off(rs + 16 * i, 2 * kk + (lane >> 4)));
+          uint32_t a[2];
+          mma::ldsm_x2(a, src_s + 2 * Sw::off(rs + 16 * i, 0));
           if (FIRST) {
+            a[0] = lrelu_bf16x2(a[0]);
+            a[1] = lrelu_bf16x2(a[1]);
+          }
+          mma::mma_bf16_k8(acc[i][0], a, b0);
+        }
+      } else {
+        const uint4* wj = wf + (size_t)j * G::TAP + lane;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] = lrelu_bf16x2(a[e]);
+        for (int kk = 0; kk < G::KK; ++kk) {
+          uint32_t bfr[G::NTN][2];
+#pragma unroll
+          for (int np = 0; np < G::NTP; ++np) {
+            const uint4 w = __ldg(wj + (kk * G::NTP + np) * 32);
+            bfr[2 * np][0] = w.x;
+            bfr[2 * np][1] = w.y;
+            bfr[2 * np + 1][0] = w.z;
+            bfr[2 * np + 1][1] = w.w;
           }
 #pragma unroll
-          for (int n = 0; n < G::NTN; ++n) mma::mma_bf16(acc[i][n], a, bfr[n][0], bfr[n][1]);
+          for (int i = 0; i < MB; ++i) {
+            uint32_t a[4];
+            mma::ldsm_x4(a, src_s + 2 * Sw::off(rs + 16 * i, 2 * kk + (lane >> 4)));
+            if (FIRST) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[e] = lrelu_bf16x2(a[e]);
+            }
+#pragma unroll
+            for (int n = 0; n < G::NTN; ++n)
+              mma::mma_bf16(acc[i][n], a, bfr[n][0], bfr[n][1]);
+          }
         }
       }
     }
@@ -554,7 +605,9 @@ int launch(int dtype, const void* x, void* out, const void* w, const float* bias
 // hi(W[j][8 kk + l % 4][8 n + l / 4]), hi(W[j][8 kk + l % 4 + 4][8 n + l / 4])
 // and the two remainders W - hi(W), hi = tf32 (to nearest, ties away).
 // dtype 1 (bf16): (k, C/16, C/16, 32 lanes, 8), element e of lane l holding
-// W[j][16 kk + 2 (l % 4) + (e % 2) + 8 ((e % 4) / 2)][8 (2 np + e / 4) + l / 4].
+// W[j][16 kk + 2 (l % 4) + (e % 2) + 8 ((e % 4) / 2)][8 (2 np + e / 4) + l / 4];
+// at C = 8, (k, 32 lanes, 2), element e of lane l holding W[j][2 (l % 4) + e][l / 4].
+// C is 8, 16, 32 or 64 (the wrapper runs C = 1, 2, 4 at 8 on zero-padded channels).
 // `bias`: f32 (n_conv, C). `acc`: f32 (B, T, C) scratch for the resblock sum.
 // ks: (n_res,), dils: (n_res * n_dil,) row-major. dtype: 0 = f32, 1 = bf16;
 // device: the index of the current device, which the stream belongs to.
@@ -585,6 +638,8 @@ extern "C" int masg_fused_mrf(const void* x, void* out, const void* w, const flo
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
+    case 8: return launch<8>(dtype, x, out, w, bias, acc, b, t_len, p, device, s);
+    case 16: return launch<16>(dtype, x, out, w, bias, acc, b, t_len, p, device, s);
     case 32: return launch<32>(dtype, x, out, w, bias, acc, b, t_len, p, device, s);
     case 64: return launch<64>(dtype, x, out, w, bias, acc, b, t_len, p, device, s);
     default: return (int)cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // Tensor-core helpers shared by the bf16 kernels (K1 in flash_fwd.cu, K2 and
 // K3 in flash_bwd.cu, K4 in fused_mrf.cu) and the f32 K4 (3xTF32): cp.async,
-// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate) and m16n8k8 (tf32 in,
-// f32 accumulate), the tf32 rounding, and the XOR swizzle that keeps ldmatrix
-// free of bank conflicts.
+// ldmatrix, mma.sync m16n8k16 and m16n8k8 (bf16 in, f32 accumulate) and
+// m16n8k8 (tf32 in, f32 accumulate), the tf32 rounding, and the XOR swizzle
+// that keeps ldmatrix free of bank conflicts.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
 // q = lane % 4:
@@ -46,6 +46,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr)
                : "memory");
 }
+// two 8x8 b16 matrices; lanes 0-15 give the row addresses (lane l: matrix l / 8)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -61,6 +68,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b  (16x8 bf16 by 8x8 bf16, f32 accumulators). Fragments (PTX ISA,
+// mma.m16n8k8 with .bf16): a[0] = (g, 2q..2q+1), a[1] = (g + 8, 2q..2q+1);
+// b = (k = 2q..2q+1, n = g); C/D as above. ldsm_x2 on rows of 8 bf16 gives
+// the A fragment.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // d += a * b  (16x8 tf32 by 8x8 tf32, f32 accumulators). Fragments (PTX ISA,
@@ -100,11 +119,12 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
 // chunk index is XORed with bits of the row so that the 8 rows one ldmatrix
 // matrix reads (8 consecutive rows, one chunk each) fall in 8 different
 // 16-byte bank groups: rows of >= 128 bytes use row % 8; a 64-byte row
-// shares a 128-byte line with its neighbour, so (row / 2) % 4; and so on.
+// shares a 128-byte line with its neighbour, so (row / 2) % 4; and so on. A
+// row of one chunk is not swizzled: 8 consecutive rows fill one 128-byte line.
 template <int ROW>
 struct Swizzle {
   static constexpr int NCH = ROW / 8;  // chunks per row
-  static_assert(NCH >= 2 && (NCH & (NCH - 1)) == 0, "row of 2^n >= 2 chunks");
+  static_assert(NCH >= 1 && (NCH & (NCH - 1)) == 0, "row of 2^n chunks");
   static constexpr int SH = NCH >= 8 ? 0 : (NCH == 4 ? 1 : 2);
   static constexpr int MASK = (NCH >= 8 ? 8 : NCH) - 1;
   // element offset of chunk `ch` of row `r` (r >= 0)

@@ -10,7 +10,11 @@
 - `make_synthetic_corpus` and the synthesizers it calls are copied from
   masg_tpu/data/synthetic.py:39-260: a RAW corpus (`raw_data/<spk>/*.wav`
   and `.lab`, TextGrid alignments, accent files, `speakers.json`) for
-  `cli.preprocess` and the vocoder CLIs.
+  `cli.preprocess` and the vocoder CLIs;
+- `make_config_dir` and `build_synthetic_experiment_dir`, copied from
+  masg_tpu/data/synthetic.py:261-359: the config dir of masg_tpu's tests
+  and demos (a 2 x 64-wide FastSpeech2) for such a corpus, and the corpus,
+  `cli.preprocess` and that config dir in one call (the demos' first stage).
 """
 
 from __future__ import annotations
@@ -367,3 +371,108 @@ def make_synthetic_corpus(root, n_speakers=2, utts_per_speaker=3, seed=0,
         "accent": {"use_accent": True},
     }
     return raw, pre, config
+
+
+# ---------------------------------------------------------------------------
+# copied from masg_tpu/data/synthetic.py:261-359 (the demos' experiment dir)
+# ---------------------------------------------------------------------------
+
+
+def make_config_dir(root, pre_dir, tmp, *, dataset="SYNTH", batch_size=2,
+                    group_size=2, total_step=20, log_step=5, synth_step=1000,
+                    val_step=10, save_step=10, grad_acc_step=1, warm_up_step=20,
+                    out_subdir="out", use_jdit=False, discriminator_path=None,
+                    lambd=None):
+    """Write a reference-style experiment config dir for the fixture corpus
+    (masg_tpu/data/synthetic.py:261; the same arguments and the same YAML)."""
+    import yaml
+
+    cfg_dir = os.path.join(tmp, "config")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, "preprocess.yaml"), "w") as f:
+        yaml.dump({
+            "val_size": 0.2, "test_size": 0.2,
+            "audio": {"sampling_rate": 22050, "max_wav_value": 32768.0},
+            "stft": {"filter_length": 1024, "hop_length": 256, "win_length": 1024},
+            "mel": {"n_mel_channels": 80, "mel_fmin": 0, "mel_fmax": 8000},
+            "pitch": {"feature": "phoneme_level", "normalization": True},
+            "energy": {"feature": "phoneme_level", "normalization": True},
+            "speaker_generation": {"metadata": {
+                "gender": {"M": 0, "F": 1}, "language": {"ja": 0, "en": 1}}},
+        }, f)
+    with open(os.path.join(cfg_dir, "model.yaml"), "w") as f:
+        yaml.dump({
+            "transformer": {
+                "encoder_layer": 2, "encoder_head": 2, "encoder_hidden": 64,
+                "decoder_layer": 2, "decoder_head": 2, "decoder_hidden": 64,
+                "conv_filter_size": 128, "conv_kernel_size": [9, 1],
+                "encoder_dropout": 0.2, "decoder_dropout": 0.2,
+            },
+            "variance_predictor": {"filter_size": 64, "kernel_size": 3, "dropout": 0.5},
+            "variance_embedding": {"pitch_quantization": "linear",
+                                   "energy_quantization": "linear", "n_bins": 256},
+            # a tiny Tacotron2 teacher, as masg_tpu's tests and demos size it
+            "jdit": {"use_jdit": use_jdit, "prenet_hidden": 32,
+                     "attention_rnn_dim": 48, "decoder_rnn_dim": 48,
+                     "attention_dim": 16, "location_filters": 4,
+                     "location_kernel": 7},
+            "multi_speaker": True,
+            "max_seq_len": 1000,
+            "vocoder": {"model": "HiFi-GAN", "speaker": "universal"},
+            "speaker_generation": {"GMM_mixtures": 3},
+            "discriminator": {"hidden": 64},
+        }, f)
+    with open(os.path.join(cfg_dir, "train.yaml"), "w") as f:
+        train_yaml = {
+            "path": {
+                "ckpt_path": os.path.join(tmp, out_subdir, "ckpt"),
+                "log_path": os.path.join(tmp, out_subdir, "log"),
+                "result_path": os.path.join(tmp, out_subdir, "result"),
+            },
+            "optimizer": {
+                "batch_size": batch_size, "betas": [0.9, 0.98], "eps": 1e-9,
+                "weight_decay": 0.0, "grad_clip_thresh": 1.0,
+                "grad_acc_step": grad_acc_step,
+                "warm_up_step": warm_up_step, "anneal_steps": [], "anneal_rate": 0.3,
+            },
+            "step": {"total_step": total_step, "log_step": log_step,
+                     "synth_step": synth_step, "val_step": val_step,
+                     "save_step": save_step},
+            "dataparallel": False,
+            "group_size": group_size,
+        }
+        if discriminator_path is not None:  # reference train.yaml:6
+            train_yaml["discriminator_path"] = discriminator_path
+        if lambd is not None:
+            train_yaml["lambda"] = lambd
+        yaml.dump(train_yaml, f)
+    with open(os.path.join(cfg_dir, f"preprocess_{dataset}.yaml"), "w") as f:
+        yaml.dump({
+            "dataset": dataset,
+            "path": {"raw_path": os.path.join(root, "raw_data", dataset),
+                     "preprocessed_path": pre_dir},
+            "text": {"text_cleaners": [], "language": "ja"},
+            "accent": {"use_accent": True},
+        }, f)
+    return cfg_dir
+
+
+def build_synthetic_experiment_dir(tmp, *, n_speakers=2, utts_per_speaker=6,
+                                   seed=0, style="tone", languages=("ja",),
+                                   voice_variation=False, n_phones=(8, 8),
+                                   device="cuda", **config_kwargs):
+    """Corpus + preprocess + config dir in one call (masg_tpu/data/
+    synthetic.py:340); `cli.preprocess` runs on `device`. Returns cfg_dir."""
+    from ..cli.preprocess import main as preprocess_main
+
+    _, pre, _ = make_synthetic_corpus(
+        tmp, n_speakers=n_speakers, utts_per_speaker=utts_per_speaker, seed=seed,
+        style=style, languages=languages, voice_variation=voice_variation,
+        n_phones=n_phones,
+    )
+    cfg_dir = make_config_dir(tmp, pre, tmp, **config_kwargs)
+    preprocess_main(["--config", cfg_dir, "--device", str(device)])
+    # single corpus: copy its stats into the config dir (gather is for multi)
+    shutil.copy(os.path.join(pre, "stats.json"), os.path.join(cfg_dir, "stats.json"))
+    shutil.copy(os.path.join(pre, "speakers.json"), os.path.join(cfg_dir, "speakers.json"))
+    return cfg_dir

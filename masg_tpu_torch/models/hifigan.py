@@ -9,8 +9,13 @@ upstream torch names (`conv_pre`, `ups.i`, `resblocks.{i*n+j}.convs{1,2}.c`,
 reads them. The public layout is channel-last: mel (B, T, n_mels).
 
 With `fused_mrf` (the default), each MRF stage whose width is at most 64 and
-whose resblock kernels are all odd runs as one `fused_mrf_stage` call (kernel
-K4 on the card), the condition masg_tpu uses. masg_tpu's `time_packing` is an
+whose resblock kernels are all odd runs as one `fused_mrf_stage` call, the
+condition masg_tpu uses (masg_tpu/models/hifigan.py:227-228). On the card
+every such stage launches kernel K4: C = 64, 32, 16 and 8 at their own
+width (V1's last two stages; all four of V2's and of any generator of 128
+initial channels), C = 1, 2 and 4 at 8 on zero-padded channels; a width that
+does not divide 128 raises, as masg_tpu's kernel takes only those. On the CPU
+the stage runs the plain version. masg_tpu's `time_packing` is an
 exact relayout for the TPU's matrix unit and has no counterpart here: the
 unfused path below is its plain equivalent.
 """

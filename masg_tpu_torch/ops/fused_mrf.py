@@ -14,6 +14,14 @@ takes them packed (`pack_stage_weights`: rounded to the working dtype, in
 the tensor cores' fragment order; for f32 also split into a TF32 part and
 its remainder for the kernel's 3xTF32 products); a caller that runs a stage
 many times packs once and passes `packed` (`HiFiGANGenerator.packed_mrf`).
+
+The kernel is built for C = 8, 16, 32 and 64. masg_tpu's kernel takes any C
+that divides 128 (masg_tpu/ops/fused_mrf.py:fused_mrf_stage), and its
+generator sends it every stage of at most 64 channels, so C = 1, 2 and 4 run
+the C = 8 kernel on channels zero-padded here (`kernel_channels`): zero
+weights and biases keep the padded channels exactly 0 through every conv,
+lrelu and residual, and the output is sliced back. `check_stage_args` holds
+the kernel's conditions without a card.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch.nn.functional as F
 from . import _build
 
 LRELU_SLOPE = 0.1
-KERNEL_CHANNELS = (32, 64)  # channel counts the kernel is built for
+KERNEL_CHANNELS = (8, 16, 32, 64)  # channel counts the kernel is built for
 KERNEL_HALO = 64  # halo rows of a kernel tile (csrc/fused_mrf.cu HALO)
 KERNEL_MAX_PAD = 32  # largest (k - 1) / 2 * d a conv may need (PADR)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,19 +84,65 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 class PackedStage(NamedTuple):
-    """One stage's conv weights in K4's layout (`pack_stage_weights`)."""
+    """One stage's conv weights in K4's layout (`pack_stage_weights`), at the
+    kernel's width (`kernel_channels(channels)`)."""
 
     weight: torch.Tensor  # per conv, in mma fragment order: f32 hi / remainder, or bf16
-    bias: torch.Tensor  # f32 (n_conv, C), values rounded to the working dtype
+    bias: torch.Tensor  # f32 (n_conv, kernel width), values rounded to the working dtype
     kernel_sizes: Tuple[int, ...]
     n_dil: int
+    channels: int  # the stage's own C (below 8, the kernel's are zero-padded to 8)
+
+
+def kernel_channels(c: int) -> int:
+    """The width of the kernel that runs a stage of `c` channels: `c` for 8,
+    16, 32 and 64, and 8 (on zero-padded channels) for 1, 2 and 4, the C
+    <= 64 that divide 128 (masg_tpu's set). Raises ValueError for any other."""
+    if c in KERNEL_CHANNELS:
+        return c
+    if c in (1, 2, 4):
+        return KERNEL_CHANNELS[0]
+    raise ValueError(f"fused_mrf kernel takes C <= 64 dividing 128 (masg_tpu's K4 "
+                     f"widths), got {c}")
+
+
+def check_stage_args(x: torch.Tensor, kernel_sizes: Sequence[int],
+                     dilation_sizes: Sequence[Sequence[int]], n_blocks: int) -> int:
+    """Raise unless kernel K4 can run this stage: x f32 or bf16, contiguous
+    (B, T, C) with C admitted by `kernel_channels`, 1-4 resblocks of 1-4
+    dilation units each (`n_blocks` weight dicts), odd kernels, a chain radius
+    <= 64 and (k - 1) / 2 * d <= 32. Looks at shapes and dtypes only, so it
+    runs on any device. Returns the kernel's width."""
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"fused_mrf kernel takes f32 or bf16, got {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"fused_mrf kernel takes contiguous (B, T, C), got "
+                         f"shape {tuple(x.shape)}")
+    kc = kernel_channels(x.shape[2])
+    n_res = len(kernel_sizes)
+    n_dil = len(dilation_sizes[0]) if len(dilation_sizes) else 0
+    if not (1 <= n_res <= 4 and 1 <= n_dil <= 4 and n_blocks == n_res
+            and len(dilation_sizes) == n_res
+            and all(len(d) == n_dil for d in dilation_sizes)):
+        raise ValueError("fused_mrf kernel takes 1-4 resblocks of 1-4 dilation units each")
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        if k % 2 == 0 or chain_halo(k, dils) > KERNEL_HALO \
+                or max(dils) * (k - 1) // 2 > KERNEL_MAX_PAD:
+            raise ValueError(f"fused_mrf kernel cannot run k={k}, dilations={dils}: "
+                             f"needs odd k, chain radius <= {KERNEL_HALO} and "
+                             f"(k-1)/2*d <= {KERNEL_MAX_PAD}")
+    return kc
 
 
 def _fragment_index(c: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(C_in, C_out) index of each element of one tap's bf16 mma fragments,
     (C/16 k-steps, C/16 n-tile pairs, 32 lanes, 8), csrc/fused_mrf.cu's order:
     element e of lane l holds k row 16 kk + 2 (l % 4) + e % 2 + 8 ((e % 4) // 2)
-    and column 8 (2 np + e // 4) + l // 4."""
+    and column 8 (2 np + e // 4) + l // 4. At C = 8 (m16n8k8 products),
+    (32 lanes, 2): element e of lane l holds k row 2 (l % 4) + e, column l // 4."""
+    if c == 8:
+        lane, e = torch.meshgrid(torch.arange(32), torch.arange(2), indexing="ij")
+        return 2 * (lane % 4) + e, lane // 4
     kk, np_, lane, e = torch.meshgrid(torch.arange(c // 16), torch.arange(c // 16),
                                       torch.arange(32), torch.arange(8), indexing="ij")
     ci = 16 * kk + 2 * (lane % 4) + e % 2 + 8 * ((e % 4) // 2)
@@ -135,14 +189,12 @@ def pack_stage_weights(block_params: Sequence[dict], kernel_sizes: Sequence[int]
     kernels rounded to `dtype` in the mma fragment order (`_fragment_index`
     for bf16; `_fragment_index_f32` for f32, each pair of elements followed by
     its remainder below TF32), the biases rounded to `dtype` and held in
-    f32."""
+    f32; at C = 1, 2, 4 both zero-padded to the kernel's 8 channels."""
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"fused_mrf kernel takes f32 or bf16, got {dtype}")
     c = block_params[0]["convs1_0_kernel"].shape[-1]
-    if c % (16 if dtype == torch.bfloat16 else 8):
-        raise ValueError(f"the {dtype} fused_mrf kernel takes C divisible by "
-                         f"{16 if dtype == torch.bfloat16 else 8}, got {c}")
-    index = _index(c, dtype, device)
+    kc = kernel_channels(c)
+    index = _index(kc, dtype, device)
     weights, biases = [], []
     with torch.no_grad():
         # the kernel's order: per resblock, per unit, conv1 then conv2
@@ -153,10 +205,12 @@ def pack_stage_weights(block_params: Sequence[dict], kernel_sizes: Sequence[int]
                     if tuple(w.shape) != (k, c, c):
                         raise ValueError(f"{cn}_{i}_kernel must be ({k}, {c}, {c}), "
                                          f"got {tuple(w.shape)}")
-                    weights.append(_pack_tap_weights(w.to(device=device, dtype=dtype), index))
-                    biases.append(bp[f"{cn}_{i}_bias"].to(device=device, dtype=dtype).float())
+                    w = F.pad(w.to(device=device, dtype=dtype), (0, kc - c, 0, kc - c))
+                    weights.append(_pack_tap_weights(w, index))
+                    b = bp[f"{cn}_{i}_bias"].to(device=device, dtype=dtype).float()
+                    biases.append(F.pad(b, (0, kc - c)))
         return PackedStage(torch.cat(weights).contiguous(), torch.stack(biases).contiguous(),
-                           tuple(kernel_sizes), n_dil)
+                           tuple(kernel_sizes), n_dil, c)
 
 
 def _tap_numel(c: int, dtype: torch.dtype) -> int:
@@ -166,11 +220,11 @@ def _tap_numel(c: int, dtype: torch.dtype) -> int:
 
 def unpack_stage_weights(packed: PackedStage) -> list:
     """`pack_stage_weights` undone: resblock dicts of `convs{1,2}_{i}_kernel`
-    (k, C, C) and `_bias` (C,) in the packed dtype."""
-    c = packed.bias.shape[1]
+    (k, C, C) and `_bias` (C,) in the packed dtype, at the stage's own C."""
+    kc, c = packed.bias.shape[1], packed.channels
     dtype = packed.weight.dtype
-    index = _index(c, dtype, packed.weight.device)
-    per_tap = _tap_numel(c, dtype)
+    index = _index(kc, dtype, packed.weight.device)
+    per_tap = _tap_numel(kc, dtype)
     blocks, pos, n = [], 0, 0
     for k in packed.kernel_sizes:
         bp = {}
@@ -178,8 +232,8 @@ def unpack_stage_weights(packed: PackedStage) -> list:
             for cn in ("convs1", "convs2"):
                 flat = packed.weight[pos:pos + k * per_tap]
                 pos += k * per_tap
-                bp[f"{cn}_{i}_kernel"] = _unpack_tap_weights(flat, k, c, index)
-                bp[f"{cn}_{i}_bias"] = packed.bias[n].to(dtype)
+                bp[f"{cn}_{i}_kernel"] = _unpack_tap_weights(flat, k, kc, index)[:, :c, :c]
+                bp[f"{cn}_{i}_bias"] = packed.bias[n, :c].to(dtype)
                 n += 1
         blocks.append(bp)
     return blocks
@@ -191,10 +245,11 @@ def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
                     packed: Optional[PackedStage] = None) -> torch.Tensor:
     """One MRF stage on channel-last x (B, T, C) -> (B, T, C).
 
-    CUDA tensors launch kernel K4 (f32 or bf16, contiguous, C in 32/64, odd
-    kernels, chain radius <= 64) on `packed`, the weights that
-    `pack_stage_weights` made for x's dtype and device, or on `block_params`
-    packed now; CPU tensors run `fused_mrf_stage_plain`.
+    CUDA tensors launch kernel K4 (`check_stage_args`: f32 or bf16,
+    contiguous, C <= 64 dividing 128, odd kernels, chain radius <= 64) on
+    `packed`, the weights that `pack_stage_weights` made for x's dtype and
+    device, or on `block_params` packed now; C = 1, 2, 4 run at 8 channels,
+    zero-padded here and sliced back. CPU tensors run `fused_mrf_stage_plain`.
     """
     if x.device.type != "cuda":
         return fused_mrf_stage_plain(x, block_params, kernel_sizes, dilation_sizes)
@@ -208,36 +263,21 @@ def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
             "input or weights require grad; train the generator with fused_mrf=False, "
             "or run it under torch.inference_mode() / torch.no_grad()")
 
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"fused_mrf kernel takes f32 or bf16, got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"fused_mrf kernel takes contiguous (B, T, C), got "
-                         f"shape {tuple(x.shape)}")
+    kc = check_stage_args(x, kernel_sizes, dilation_sizes, len(block_params))
     b, t, c = x.shape
-    if c not in KERNEL_CHANNELS:
-        raise ValueError(f"fused_mrf kernel takes C in {KERNEL_CHANNELS}, got {c}")
     n_res = len(kernel_sizes)
     n_dil = len(dilation_sizes[0])
-    if not (1 <= n_res <= 4 and 1 <= n_dil <= 4 and len(block_params) == n_res
-            and len(dilation_sizes) == n_res
-            and all(len(d) == n_dil for d in dilation_sizes)):
-        raise ValueError("fused_mrf kernel takes 1-4 resblocks of 1-4 dilation units each")
-    for k, dils in zip(kernel_sizes, dilation_sizes):
-        if k % 2 == 0 or chain_halo(k, dils) > KERNEL_HALO \
-                or max(dils) * (k - 1) // 2 > KERNEL_MAX_PAD:
-            raise ValueError(f"fused_mrf kernel cannot run k={k}, dilations={dils}: "
-                             f"needs odd k, chain radius <= {KERNEL_HALO} and "
-                             f"(k-1)/2*d <= {KERNEL_MAX_PAD}")
-
     if packed is None:
         packed = pack_stage_weights(block_params, kernel_sizes, n_dil, x.dtype, x.device)
     n_conv = 2 * n_dil * n_res
     if (packed.weight.dtype != x.dtype or packed.weight.device != x.device
-            or packed.bias.device != x.device
-            or tuple(packed.bias.shape) != (n_conv, c) or packed.n_dil != n_dil
+            or packed.bias.device != x.device or packed.channels != c
+            or tuple(packed.bias.shape) != (n_conv, kc) or packed.n_dil != n_dil
             or packed.kernel_sizes != tuple(kernel_sizes)
-            or packed.weight.numel() != 2 * n_dil * sum(kernel_sizes) * _tap_numel(c, x.dtype)):
+            or packed.weight.numel() != 2 * n_dil * sum(kernel_sizes) * _tap_numel(kc, x.dtype)):
         raise ValueError("packed weights do not match this stage, dtype or device")
+    if kc != c:  # zero channels up to the kernel's width; they stay 0 throughout
+        x = F.pad(x, (0, kc - c))
     out = torch.empty_like(x)
     # the kernel's f32 sum of the resblock outputs, one row per output row
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -247,12 +287,12 @@ def fused_mrf_stage(x: torch.Tensor, block_params: Sequence[dict],
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.masg_fused_mrf(x.data_ptr(), out.data_ptr(), packed.weight.data_ptr(),
-                                  packed.bias.data_ptr(), acc.data_ptr(), b, t, c,
+                                  packed.bias.data_ptr(), acc.data_ptr(), b, t, kc,
                                   _KERNEL_DTYPES[x.dtype], n_res, n_dil, ks, dils,
                                   x.device.index, stream)
     _build.check(code, "fused_mrf")
     fused_mrf_stage.launches += 1
-    return out
+    return out if kc == c else out[..., :c].contiguous()
 
 
 fused_mrf_stage.launches = 0  # kernel launches since the last reset

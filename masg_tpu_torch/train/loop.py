@@ -137,6 +137,13 @@ class Trainer:
         seed = step_seed(self.seed, step, mesh.rank if mesh.parts > 1 else 0)
         return self._place_batch(mesh.shard_batch(batch)), seed, mesh
 
+    def train_on(self, batch: Dict[str, np.ndarray], step: int):
+        """One train step on host batch `batch` as `fit` takes step `step`
+        (its dropout seed and speaker shuffle drawn from (seed, step)).
+        Returns the step's metrics."""
+        self.state, metrics = self.train_step_fn(self.state, *self._train_batch(batch, step))
+        return metrics
+
     # ------------------------------------------------------------------
     def fit(self, restore_step: int = 0, max_steps: Optional[int] = None,
             verbose: bool = True) -> TrainState:
@@ -185,8 +192,7 @@ class Trainer:
                     if skip > 0:  # fast-forwarding to the restore position
                         skip -= 1
                         continue
-                    self.state, metrics = self.train_step_fn(self.state,
-                                                             *self._train_batch(batch, step))
+                    metrics = self.train_on(batch, step)
 
                     if step % self.log_step == 0 and lead:
                         losses = [float(x) for x in (metrics.total, metrics.mel,

@@ -85,8 +85,8 @@ def test_kernels_match_plain_versions_on_the_card():
     y = fused_mrf_stage(x, blocks, ks, ds)
     assert fused_mrf_stage.launches == n0 + 1
     torch.testing.assert_close(y, fused_mrf_stage_plain(x, blocks, ks, ds), atol=2e-5, rtol=0)
-    with pytest.raises(ValueError):
-        fused_mrf_stage(torch.randn(1, 10, 16, device="cuda"), blocks, ks, ds)
+    with pytest.raises(ValueError):  # 24 channels: not a width masg_tpu's K4 takes
+        fused_mrf_stage(torch.randn(1, 10, 24, device="cuda"), blocks, ks, ds)
     torch.cuda.synchronize()
 
 
@@ -341,6 +341,79 @@ def test_f32_fused_mrf_matches_plain_over_tiles_and_edges(c, t):
         y_cut = fused_mrf_stage(x[:, s0:].contiguous(), blocks, ks, ds)
         assert torch.equal(y_cut[:, 65:], y[:, s0 + 65:])
     torch.cuda.synchronize()
+
+
+# the narrow kernels' output rows per block (csrc/fused_mrf.cu FGeo / TGeo)
+NARROW_TILE = {(torch.float32, 16): 1536, (torch.float32, 8): 3328,
+               (torch.bfloat16, 16): 3328, (torch.bfloat16, 8): 6912}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,t,ks", [(16, 3500, (3, 7, 11)), (8, 7100, (3, 7, 11)),
+                                    (16, 2000, (3, 7)), (8, 40, (3, 7, 11)), (16, 1, (3, 7)),
+                                    (4, 3000, (3, 7)), (2, 100, (3, 7, 11)), (1, 50, (3,))])
+def test_narrow_fused_mrf_matches_plain_over_tiles_and_edges(c, t, ks, dtype):
+    """K4 at the widths of HiFi-GAN V2's and the demo vocoder's last stages
+    (C = 16, 8; V2's kernels and the demo's two resblocks) and at C = 4, 2, 1
+    (run at 8 on zero-padded channels): one launch each, within 2e-5 (f32)
+    and 0.125 (bf16) of the plain stage, as at C = 32 / 64; across a tile
+    join, a run that starts 37 rows into the second tile gives the same bits
+    at every row more than 64 rows past the cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from masg_tpu_torch.ops.fused_mrf import (fused_mrf_stage, fused_mrf_stage_plain,
+                                              kernel_channels)
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(900 + c + t)
+    ds = ((1, 3, 5),) * len(ks)
+    blocks = [{n: v.to(dtype) for n, v in b.items()} for b in _mrf_blocks(c, gen, ks)]
+    x = torch.randn(2, t, c, generator=gen).cuda().to(dtype)
+    n0 = fused_mrf_stage.launches
+    y = fused_mrf_stage(x, blocks, ks, ds)
+    assert fused_mrf_stage.launches == n0 + 1
+    y_ref = fused_mrf_stage_plain(x, blocks, ks, ds)
+    assert y.shape == x.shape and y.dtype == dtype and torch.isfinite(y.float()).all()
+    tol = 2e-5 if dtype == torch.float32 else 0.125
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=0)
+    tile = NARROW_TILE[(dtype, kernel_channels(c))]
+    if t > tile + 37 + 65:
+        s0 = tile + 37
+        y_cut = fused_mrf_stage(x[:, s0:].contiguous(), blocks, ks, ds)
+        assert torch.equal(y_cut[:, 65:], y[:, s0 + 65:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_generators_of_128_channels_run_every_stage_through_k4():
+    """HiFi-GAN V2 (128 initial channels, kernels 3 / 7 / 11) and the demo's
+    vocoder (kernels 3 / 7) on the card: all four MRF stages (C = 64, 32, 16,
+    8) launch K4, and the wav is within 2 LSB of the plain MRF's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    from masg_tpu_torch.infer.vocoder import Vocoder, vocoder_infer
+    from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mel = torch.randn(2, 120, 80, generator=torch.Generator().manual_seed(0)).cuda()
+    for ks in ((3, 7, 11), (3, 7)):
+        kw = dict(upsample_initial_channel=128, resblock_kernel_sizes=ks,
+                  resblock_dilation_sizes=((1, 3, 5),) * len(ks))
+        wavs = {}
+        for fused in (True, False):
+            gen = HiFiGANGenerator(fused_mrf=fused, **kw)
+            init_random_weights(gen, torch.Generator().manual_seed(3))
+            n0 = fused_mrf_stage.launches
+            wavs[fused] = vocoder_infer(mel, Vocoder(gen.cuda()))
+            assert fused_mrf_stage.launches - n0 == (4 if fused else 0)
+        for a, b in zip(wavs[True], wavs[False]):
+            assert np.abs(a.astype(np.int32)).max() > 1000
+            assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 2
 
 
 @pytest.mark.cuda

@@ -188,11 +188,37 @@ def test_state_dict_round_trips_against_export_torch_ge2e():
         assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
     te = tse.SpeechEmbedder(n_mels=NMELS, hidden=HIDDEN, n_layers=LAYERS, proj=PROJ)
     assert set(te.state_dict()) == set(want)
-    # a fresh embedder: the reference's init, both biases of a gate zero
+    # a fresh embedder: masg_tpu's init, both biases of a gate zero
     assert all(float(v.abs().max()) == 0.0 for k, v in te.state_dict().items() if "bias_" in k)
     assert [n for n, _ in te.named_parameters()] == [
         n for n in __import__("masg_tpu.compat.torch_fs2", fromlist=["x"])
         .ge2e_param_order(LAYERS)]
+
+
+def test_fresh_embedder_takes_masg_tpus_init():
+    """A fresh `SpeechEmbedder` draws its weights as masg_tpu's flax modules
+    do (other numbers, the same law): every bias 0, each gate's recurrent
+    block orthogonal, each gate's input block and each Linear a normal of
+    std 1 / sqrt(fan_in) truncated at 2 sigma, held against masg_tpu's own
+    init's std for the same block within 10 %."""
+    torch.manual_seed(0)
+    te = tse.SpeechEmbedder(n_mels=80, hidden=64, n_layers=2, proj=PROJ)
+    je = jse.SpeechEmbedder(n_mels=80, hidden=64, n_layers=2, proj=PROJ)
+    want = ge2e_state_dict_from_jax(
+        _np(je.init(jax.random.PRNGKey(0), jnp.zeros((2, T_FRAMES, 80)))["params"]))
+    got = te.state_dict()
+    assert set(got) == set(want)
+    for name, w in got.items():
+        if name.endswith("bias") or "bias_" in name:
+            assert float(w.abs().max()) == 0.0, name
+            continue
+        blocks = w.chunk(4) if name.startswith("LSTM_stack.") else (w,)
+        for g, (b, ref) in enumerate(zip(blocks, want[name].chunk(len(blocks)))):
+            assert float(b.abs().max()) <= 2.0 * (1.0 / b.shape[1]) ** 0.5 / 0.8796 + 1e-6 \
+                or "weight_hh" in name, (name, g)
+            assert abs(float(b.std()) / float(ref.std()) - 1.0) < 0.1, (name, g)
+            if "weight_hh" in name:  # orthogonal
+                torch.testing.assert_close(b @ b.T, torch.eye(b.shape[0]), atol=1e-5, rtol=0)
 
 
 def test_similarity_losses_bce_and_chunking_match():

@@ -4,7 +4,7 @@ The kernel splits every operand x into hi = tf32(x) and lo = tf32(x - hi)
 (to nearest, ties away) and takes each product as lo.hi' + hi.lo' + hi.hi'
 in f32 (per k-step of 8 channels on the tensor cores, whose truncating
 accumulation the card's own 2e-5 check covers; here the sums are rounded).
-Here a V1 stage is computed that way, with the kernel's rounding
+Here a V1 stage (and, at C = 16 and 8, a V2 one) is computed that way, with the kernel's rounding
 (`tf32_round`) and its packed weights (`pack_stage_weights`, unpacked into
 the TF32 part and the remainder), and held against `fused_mrf_stage_plain`
 at 5e-6, a quarter of the 2e-5 bar the kernel meets on the card. A single
@@ -78,7 +78,7 @@ def _stage_3xtf32(x, blocks, products):
 THREE = ((1, 0), (0, 1), (0, 0))  # lo.hi', hi.lo', hi.hi': the kernel's order
 
 
-@pytest.mark.parametrize("c,t", [(32, 2000), (64, 1999)])
+@pytest.mark.parametrize("c,t", [(32, 2000), (64, 1999), (16, 2001), (8, 2002)])
 def test_3xtf32_stage_matches_plain(c, t):
     x, blocks = _stage_inputs(c, t, seed=c)
     want = fused_mrf_stage_plain(x, blocks, KS, DS)
