@@ -23,6 +23,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import melgan
 from ..models.hifigan import HiFiGANGenerator, fold_weight_norm, init_random_weights
+from ..utils import profiling
 
 DEFAULT_HIFIGAN_CONFIG = {
     # hifigan/config.json (universal V1)
@@ -218,9 +219,14 @@ def vocoder_infer(mels: torch.Tensor, vocoder: Vocoder,
                   lengths: Optional[Sequence[int]] = None) -> List[np.ndarray]:
     """(B, T, n_mels) -> list of int16 wavs, truncated to `lengths` samples
     (reference vocoder_infer, utils/model.py:74-92)."""
-    out = list(to_int16(vocoder(mels).float().cpu().numpy(), vocoder.max_wav_value))
-    if lengths is not None:
-        out = [w[: int(n)] for w, n in zip(out, lengths)]
+    wav = vocoder(mels).float().cpu().numpy()
+    with profiling.span("vocoder.to_int16"):
+        out = list(to_int16(wav, vocoder.max_wav_value))
+        if lengths is not None:
+            out = [w[: int(n)] for w, n in zip(out, lengths)]
+    if profiling.enabled():
+        profiling.count("vocoder.samples", wav.size)
+        profiling.count("vocoder.useful_samples", sum(len(w) for w in out))
     return out
 
 

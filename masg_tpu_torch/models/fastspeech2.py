@@ -30,6 +30,7 @@ from torch import nn
 from ..core.config import ExperimentConfig, Stats
 from ..ops.gmm import DiagGMM
 from ..ops.masks import pad_mask_from_lengths
+from ..utils import profiling
 from .encoder import Decoder, Encoder
 from .jdit import JDIT
 from .postnet import PostNet
@@ -196,13 +197,15 @@ class FastSpeech2(nn.Module):
             mel_jdit, _gate, alignments = self.jdit(x, mels, src_pad_mask, jdit_generator)
         if speaker_vec is not None:
             x = x + speaker_vec[:, None, :].to(x.dtype)
-        va = self.variance_adaptor(x, src_pad_mask, max_mel_len, mel_pad_mask_in,
-                                   p_targets, e_targets, d_targets,
-                                   p_control, e_control, d_control)
-        dec_out, mel_pad_mask = self.decoder(va.x, va.mel_pad_mask, va.mel_len,
-                                             truncate=d_targets is not None)
-        mel = self.mel_linear(dec_out)
-        postnet_mel = self.postnet(mel, mesh) + mel
+        with profiling.span("fs2.variance_adaptor", stream_time=x):
+            va = self.variance_adaptor(x, src_pad_mask, max_mel_len, mel_pad_mask_in,
+                                       p_targets, e_targets, d_targets,
+                                       p_control, e_control, d_control)
+        with profiling.span("fs2.decoder", stream_time=x):
+            dec_out, mel_pad_mask = self.decoder(va.x, va.mel_pad_mask, va.mel_len,
+                                                 truncate=d_targets is not None)
+            mel = self.mel_linear(dec_out)
+            postnet_mel = self.postnet(mel, mesh) + mel
         return FS2Output(
             mel=mel,
             postnet_mel=postnet_mel,

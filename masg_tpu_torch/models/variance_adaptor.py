@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.length_regulator import regulate_lengths
 from ..ops.masks import pad_mask_from_lengths
+from ..utils import profiling
 from .layers import ConvNorm
 
 
@@ -142,7 +143,8 @@ class VarianceAdaptor(nn.Module):
 
         if duration_target is not None:
             duration_rounded = duration_target
-            x, mel_len = regulate_lengths(x, duration_target, max_mel_len)
+            with profiling.span("fs2.length_regulator", stream_time=x):
+                x, mel_len = regulate_lengths(x, duration_target, max_mel_len)
             if mel_pad_mask is None:
                 mel_pad_mask = pad_mask_from_lengths(mel_len, max_mel_len)
         else:
@@ -150,7 +152,8 @@ class VarianceAdaptor(nn.Module):
             duration_rounded = torch.clamp(
                 torch.round(torch.exp(log_d_pred) - 1.0) * d_control, min=0)
             # padded phonemes predict 0 after mask-fill -> exp(0)-1 = 0: safe
-            x, mel_len = regulate_lengths(x, duration_rounded, max_mel_len)
+            with profiling.span("fs2.length_regulator", stream_time=x):
+                x, mel_len = regulate_lengths(x, duration_rounded, max_mel_len)
             mel_pad_mask = pad_mask_from_lengths(mel_len, max_mel_len)
 
         if self.pitch_feature_level == "frame_level":

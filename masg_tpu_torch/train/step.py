@@ -63,6 +63,7 @@ from ..models.loss import FS2Losses, fastspeech2_loss, speaker_prior_log_prob
 from ..models.speaker_encoder import (SpeechEmbedder, bce_with_logits_sum, chunk_mels,
                                       discriminator_mode)
 from ..parallel.distributed import all_reduce_, reduced
+from ..utils import profiling
 from .state import TrainState
 
 # the speaker_meta column of the binary language label (reference train.py:185)
@@ -91,11 +92,12 @@ def batch_to_device(batch: Dict[str, np.ndarray], device, float_dtype: torch.dty
     injected `reorder`) as int64, features in `float_dtype` (the model's
     parameter dtype)."""
     out = {}
-    for k, v in batch.items():
-        if k in _HOST_KEYS:
-            continue
-        t = torch.as_tensor(np.asarray(v))
-        out[k] = t.to(device, torch.long if k in _INT_KEYS else float_dtype)
+    with profiling.span("data.to_device"):
+        for k, v in batch.items():
+            if k in _HOST_KEYS:
+                continue
+            t = torch.as_tensor(np.asarray(v))
+            out[k] = t.to(device, torch.long if k in _INT_KEYS else float_dtype)
     return out
 
 
@@ -264,27 +266,28 @@ def _update(state: TrainState, total: torch.Tensor, mesh=None) -> torch.Tensor:
     acc = [p.grad for p in params] if state.micro_step else None
     for p in params:
         p.grad = None
-    total.backward()
-    for p in params:  # one the forward did not reach (no accents) counts as zero
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None:
-        mesh.reduce_grads(params)
     axis = state.model_axis
     shard = state.shard_mask if axis is not None else None
-    if axis is not None:
-        # every model rank computes the replicated parameters' gradients; on a
-        # card they were seen to differ in the last bits between ranks (cause
-        # not traced; K1-K3 use no atomics): their mean keeps the replicas one
-        # model, bit for bit
-        replicated = [p.grad for p, s in zip(params, shard) if not s]
-        all_reduce_(replicated, axis.group)
-        for g in replicated:
-            g.div_(axis.size)
-    # the clip's norm is this gradient's when it covers every parameter of a
-    # single micro-batch (over the master it is the f32 norm of the same values)
-    grad_norm = (None if state.discriminator is None and k == 1
-                 else global_norm([p.grad for p in params], shard, axis))
+    with profiling.span("train.backward"):
+        total.backward()
+        for p in params:  # one the forward did not reach (no accents) counts as zero
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            mesh.reduce_grads(params)
+        if axis is not None:
+            # every model rank computes the replicated parameters' gradients; on a
+            # card they were seen to differ in the last bits between ranks (cause
+            # not traced; K1-K3 use no atomics): their mean keeps the replicas one
+            # model, bit for bit
+            replicated = [p.grad for p, s in zip(params, shard) if not s]
+            all_reduce_(replicated, axis.group)
+            for g in replicated:
+                g.div_(axis.size)
+        # the clip's norm is this gradient's when it covers every parameter of a
+        # single micro-batch (over the master it is the f32 norm of the same values)
+        grad_norm = (None if state.discriminator is None and k == 1
+                     else global_norm([p.grad for p in params], shard, axis))
     if k > 1:  # optax.MultiSteps: the mean of k micro-batch gradients, one update
         for i, p in enumerate(params):
             g = p.grad / k
@@ -293,24 +296,25 @@ def _update(state: TrainState, total: torch.Tensor, mesh=None) -> torch.Tensor:
         if state.micro_step < k:
             state.step += 1
             return grad_norm
-    # the optimizer's tensors: the f32 master under bf16 storage
-    opt = params if state.master is None else state.master
-    if state.master is not None:
-        for m, p in zip(state.master, params):
-            m.grad = p.grad.to(m.dtype)
-    mask = state.clip_mask()
-    clip = [t for t, c in zip(opt, mask) if c]
-    norm = _clip(clip, shard and [s for s, c in zip(shard, mask) if c], axis,
-                 state.grad_clip_thresh)
-    grad_norm = norm if grad_norm is None else grad_norm
-    state.optimizer.step()
-    state.scheduler.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    if state.master is not None:
-        with torch.no_grad():
+    with profiling.span("train.optimizer"):
+        # the optimizer's tensors: the f32 master under bf16 storage
+        opt = params if state.master is None else state.master
+        if state.master is not None:
             for m, p in zip(state.master, params):
-                p.copy_(m)  # the stored parameters become bf16(master)
-                p.grad = None
+                m.grad = p.grad.to(m.dtype)
+        mask = state.clip_mask()
+        clip = [t for t, c in zip(opt, mask) if c]
+        norm = _clip(clip, shard and [s for s, c in zip(shard, mask) if c], axis,
+                     state.grad_clip_thresh)
+        grad_norm = norm if grad_norm is None else grad_norm
+        state.optimizer.step()
+        state.scheduler.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        if state.master is not None:
+            with torch.no_grad():
+                for m, p in zip(state.master, params):
+                    p.copy_(m)  # the stored parameters become bf16(master)
+                    p.grad = None
     state.micro_step = 0
     state.step += 1
     return grad_norm
@@ -386,8 +390,9 @@ def make_train_step(model: FastSpeech2, pitch_feature_level: str = "phoneme_leve
             torch.manual_seed(seed)
         elif use_jdit:  # the teacher's generator needs a seed of its own
             seed = int(torch.empty((), dtype=torch.int64).random_())
-        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step, seed or 0,
-                                                 mesh)
+        with profiling.span("train.forward"):
+            total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step, seed or 0,
+                                                     mesh)
         grad_norm = _update(state, total, mesh)
         return state, _metrics(losses, eloss, dloss, grad_norm, mesh)
 
@@ -429,8 +434,9 @@ def make_ganlike_train_step(model: GANLike, pitch_feature_level: str = "phoneme_
                    seed: Optional[int] = None, mesh=None) -> Tuple[TrainState, StepMetrics]:
         if seed is not None:
             torch.manual_seed(seed)
-        total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step,
-                                                 state.grad_acc_step, mesh)
+        with profiling.span("train.forward"):
+            total, losses, eloss, dloss, _ = loss_fn(state.model, batch, state.step,
+                                                     state.grad_acc_step, mesh)
         grad_norm = _update(state, total, mesh)
         return state, _metrics(losses, eloss, dloss, grad_norm, mesh)
 

@@ -1,0 +1,8 @@
+"""Device-idle time inside the program's `train.forward` spans (the forward and
+the loss), over the traced window, in ms."""
+
+from portbench.program_spans import idle_in_span_ms
+
+
+def read(rec):
+    return idle_in_span_ms(rec, "train.forward")

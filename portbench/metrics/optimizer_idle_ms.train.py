@@ -1,0 +1,8 @@
+"""Device-idle time inside the program's `train.optimizer` spans (the clip,
+Adam, the schedule and zero_grad), over the traced window, in ms."""
+
+from portbench.program_spans import idle_in_span_ms
+
+
+def read(rec):
+    return idle_in_span_ms(rec, "train.optimizer")

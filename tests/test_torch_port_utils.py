@@ -1,6 +1,7 @@
 """The port's utils: `utils/mcd.py` against masg_tpu's on
 tests/test_mcd.py's four cases (the same numpy arithmetic, so exactly), and
-`utils/profiling` on the CPU (a Chrome trace written, a step rate)."""
+`utils/profiling` on the CPU (a Chrome trace written; its spans and
+counters are in test_torch_port_tracing.py)."""
 
 import json
 import os
@@ -11,7 +12,7 @@ import torch
 
 from masg_tpu.utils import mcd as jmcd
 from masg_tpu_torch.utils import mcd as tmcd
-from masg_tpu_torch.utils.profiling import StepTimer, trace, true_sync
+from masg_tpu_torch.utils.profiling import trace, true_sync
 
 
 def _identical(m):
@@ -55,11 +56,3 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.get("name", "") for e in events)
     assert os.path.getsize(tmp_path / "trace.json") > 0
 
-
-def test_step_timer_counts_steps():
-    timer = StepTimer(sync_every=2)
-    x = torch.ones(1)
-    assert timer.step(x) == 0.0
-    for _ in range(4):
-        rate = timer.step(x)
-    assert rate > 0 and timer.count == 4
