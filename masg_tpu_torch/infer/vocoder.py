@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -215,18 +216,61 @@ def to_int16(wav: np.ndarray, max_wav_value: float) -> np.ndarray:
     return np.clip(wav * max_wav_value, -32768, 32767).astype(np.int16)
 
 
+def trim_to_int16(wav: torch.Tensor, max_wav_value: float,
+                  lengths: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, List[int]]:
+    """(B, T) float wav -> (the rows' kept samples as one flat int16 tensor on
+    wav's device, each row's count): `to_int16` and `vocoder_infer`'s trim in
+    torch, bit for bit. Row b keeps its prefix of `lengths[b]` samples, with
+    Python's slice rule (at most T); all of it when `lengths` is None. The
+    rows are put together before the conversion, so it touches only the
+    kept samples, and their counts come from the slices' shapes, with no
+    wait for the device. The multiply is one f32 product (exact for 32768)
+    and the cast truncates toward zero, as numpy's does."""
+    rows = list(wav) if lengths is None else [w[: int(n)] for w, n in zip(wav, lengths)]
+    sizes = [r.shape[0] for r in rows]
+    if not rows:
+        return wav.new_empty(0, dtype=torch.int16), sizes
+    flat = torch.cat(rows).float() * max_wav_value
+    return flat.clamp_(-32768, 32767).to(torch.int16), sizes
+
+
+@torch.inference_mode()
+def _int16_rows_to_host(wav: torch.Tensor, max_wav_value: float,
+                        lengths: Optional[Sequence[int]]) -> List[np.ndarray]:
+    """`trim_to_int16` on the card, then one copy of the kept samples into
+    page-locked memory from torch's caching host allocator. The rows are
+    views of that buffer, and their numpy base holds it, so the allocator
+    takes the block back only once every row of the call is gone."""
+    flat, sizes = trim_to_int16(wav, max_wav_value, lengths)
+    host = torch.empty(flat.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    torch.cuda.current_stream(flat.device).synchronize()
+    flat_np = host.numpy()
+    ends = itertools.accumulate(sizes)
+    return [flat_np[end - n: end] for n, end in zip(sizes, ends)]
+
+
 def vocoder_infer(mels: torch.Tensor, vocoder: Vocoder,
                   lengths: Optional[Sequence[int]] = None) -> List[np.ndarray]:
     """(B, T, n_mels) -> list of int16 wavs, truncated to `lengths` samples
-    (reference vocoder_infer, utils/model.py:74-92)."""
-    wav = vocoder(mels).float().cpu().numpy()
+    (reference vocoder_infer, utils/model.py:74-92).
+
+    A wav made on the card is converted and trimmed there
+    (`trim_to_int16`) and only the kept samples come to the host; a wav on
+    the CPU goes through numpy's `to_int16`. Both give the same samples."""
+    wav = vocoder(mels)
     with profiling.span("vocoder.to_int16"):
-        out = list(to_int16(wav, vocoder.max_wav_value))
-        if lengths is not None:
-            out = [w[: int(n)] for w, n in zip(out, lengths)]
+        if wav.is_cuda:
+            out = _int16_rows_to_host(wav, vocoder.max_wav_value, lengths)
+        else:
+            out = list(to_int16(wav.float().cpu().numpy(), vocoder.max_wav_value))
+            if lengths is not None:
+                out = [w[: int(n)] for w, n in zip(out, lengths)]
     if profiling.enabled():
-        profiling.count("vocoder.samples", wav.size)
+        profiling.count("vocoder.samples", wav.numel())
         profiling.count("vocoder.useful_samples", sum(len(w) for w in out))
+        if wav.is_cuda:
+            profiling.count("vocoder.device_int16", len(out))
     return out
 
 

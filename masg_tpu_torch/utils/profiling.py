@@ -29,10 +29,15 @@ program records:
   of the span above: the expansion of phones to the mel capacity;
 - S `fs2.decoder` + stream (`_synthesis_core`): the decoder, `mel_linear`
   and the PostNet;
-- S `vocoder.to_int16` (`infer/vocoder.py:vocoder_infer`): the host's int16
-  conversion and trim of the fetched wav;
+- S `vocoder.to_int16` (`infer/vocoder.py:vocoder_infer`): from the
+  generator's output to the list of int16 rows. On the card: the conversion
+  and trim there, the copy of the kept samples to page-locked memory, the
+  wait for it (and so for the generator) and the row views; on the CPU:
+  numpy's int16 conversion and trim of the float wav;
 - C `vocoder.samples`, `vocoder.useful_samples` (`vocoder_infer`): the
   samples the generator made (B x T x hop) and those kept after the trim;
+- C `vocoder.device_int16` (`vocoder_infer`): the rows converted on the card
+  (none on the CPU);
 - S `data.to_device` (`train/step.py:batch_to_device`): a batch's
   host-to-device copies;
 - S `train.forward` (the train step closures of `train/step.py`): the

@@ -499,3 +499,64 @@ def test_fused_mrf_refuses_a_backward_on_the_card():
     assert fused_mrf_stage.launches == n0 and torch.isfinite(m.gen_loss)
     assert all(p.grad is not None and bool(p.grad.abs().max() > 0)
                for p in state.generator.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_vocoder_infer_makes_the_int16_wav_on_the_card(dtype):
+    """At B = 16, lengths 0 and T among the rows: the wav `vocoder_infer`
+    converts and trims on the card equals numpy's `to_int16` and trim of the
+    same generator output fetched to the host, bit for bit; a first call's
+    arrays are unchanged by a second; the span and the counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    from masg_tpu_torch.infer.vocoder import Vocoder, to_int16, vocoder_infer
+    from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
+    from masg_tpu_torch.utils import profiling
+
+    class Kept(Vocoder):
+        def __call__(self, mel):
+            self.wav = super().__call__(mel)
+            return self.wav
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, frames = 16, 40
+    t = frames * 256
+    gen = HiFiGANGenerator(upsample_initial_channel=128)
+    init_random_weights(gen, torch.Generator().manual_seed(4))
+    voc = Kept(gen.to("cuda", dtype))
+    rng = np.random.default_rng(5)
+    lengths = [0, t, t + 300, 1] + rng.integers(0, t, b - 4).tolist()
+
+    def numpy_path(wav, lens):
+        out = list(to_int16(wav.float().cpu().numpy(), voc.max_wav_value))
+        return [w[: int(n)] for w, n in zip(out, lens)]
+
+    calls = []
+    for seed in (0, 1):
+        mel = torch.randn(b, frames, 80, generator=torch.Generator().manual_seed(seed))
+        profiling.clear()
+        with profiling.recording():
+            got = vocoder_infer(mel.cuda(), voc, lengths)
+        want = numpy_path(voc.wav, lengths)
+        assert [s.name for s in profiling.spans()] == ["vocoder.to_int16"]
+        assert profiling.counters() == {"vocoder.device_int16": b, "vocoder.samples": b * t,
+                                        "vocoder.useful_samples": sum(min(n, t) for n in lengths)}
+        assert len(got) == b and [len(w) for w in got] == [min(n, t) for n in lengths]
+        for g, w in zip(got, want):
+            assert g.dtype == np.int16
+            np.testing.assert_array_equal(g, w)
+        assert np.abs(np.concatenate(want).astype(np.int32)).max() > 1000
+        calls.append((got, [w.copy() for w in got]))
+    profiling.clear()
+    (first, first_copy), (second, _) = calls
+    for g, c in zip(first, first_copy):
+        np.testing.assert_array_equal(g, c)
+    assert not any(np.shares_memory(a, s) for a in first for s in second if a.size and s.size)
+    whole = vocoder_infer(mel.cuda(), voc)
+    assert [len(w) for w in whole] == [t] * b
+    for g, w in zip(whole, numpy_path(voc.wav, [t] * b)):
+        np.testing.assert_array_equal(g, w)
