@@ -117,8 +117,9 @@ def run(args, device):
     from ..device import resolve_device
     from ..infer.vocoder import load_generator_checkpoint
     from ..parallel.mesh import DataMesh
-    from ..train.vocoder import (export_generator_state_dict, init_vocoder_train_state,
-                                 load_upstream_discriminators, make_vocoder_train_step)
+    from ..train.vocoder import (batch_to_device, export_generator_state_dict,
+                                 init_vocoder_train_state, load_upstream_discriminators,
+                                 make_vocoder_train_step)
 
     device = resolve_device(device)
     cfg = training_config(args.config)
@@ -168,10 +169,10 @@ def run(args, device):
     log_path = os.path.join(args.out, "log.jsonl")
     for batch in batches:
         if args.mel_dir:  # this rank's rows
-            batch = tuple(torch.from_numpy(np.asarray(x)[rows]).to(device) for x in batch)
+            batch = tuple(np.asarray(x)[rows] for x in batch)
         else:
-            batch = torch.from_numpy(batch[rows]).to(device)
-        state, metrics = step_fn(state, batch)
+            batch = batch[rows]
+        state, metrics = step_fn(state, batch_to_device(batch, device))
         step = state.step
         if not lead:
             continue

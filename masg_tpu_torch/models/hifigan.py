@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.fused_mrf import (LRELU_SLOPE, PackedStage, fused_mrf_stage, get_padding,
                              pack_stage_weights)
+from ..utils import profiling
 
 
 class ResBlock(nn.Module):
@@ -123,6 +124,7 @@ class HiFiGANGenerator(nn.Module):
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel: (B, T, n_mels) channel-last -> wav (B, T * prod(rates))."""
         n_res = len(self.resblock_kernel_sizes)
+        plain = 0
         x = self.conv_pre(mel.transpose(1, 2))
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
@@ -134,11 +136,14 @@ class HiFiGANGenerator(nn.Module):
                                     self.resblock_kernel_sizes,
                                     self.resblock_dilation_sizes, packed).transpose(1, 2)
                 continue
+            plain += 1
             xs = None
             for block in blocks:
                 r = block(x)
                 xs = r if xs is None else xs + r
             x = xs / n_res
+        if plain:
+            profiling.count("hifigan.plain_mrf_stages", plain)
         # the final activation uses leaky_relu's default slope 0.01, not 0.1
         x = self.conv_post(F.leaky_relu(x))
         return torch.tanh(x)[:, 0, :]

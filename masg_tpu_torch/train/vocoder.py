@@ -38,6 +38,7 @@ from ..models.hifigan import HiFiGANGenerator
 from ..models.hifigan_disc import (SPECTRAL_NORM_SCALE, MultiPeriodDiscriminator,
                                    MultiScaleDiscriminator, build_discriminators,
                                    init_random_weights)
+from ..utils import profiling
 
 # ---------------------------------------------------------------------------
 # the mel of GAN training: upstream meldataset.mel_spectrogram (a manual
@@ -292,6 +293,16 @@ def mel_kwargs(cfg: Dict) -> dict:
                 f_min=float(cfg.get("fmin", 0) or 0.0))
 
 
+def batch_to_device(batch, device):
+    """A host batch of `VocoderSegmentDataset.batches` -> tensors on `device`:
+    the (B, segment) audio, or with mels the (mels, audio) pair, each copied
+    as it is (no dtype change), inside the span `data.to_device`."""
+    with profiling.span("data.to_device"):
+        if isinstance(batch, tuple):
+            return tuple(torch.from_numpy(np.asarray(x)).to(device) for x in batch)
+        return torch.from_numpy(np.asarray(batch)).to(device)
+
+
 def make_vocoder_train_step(cfg: Dict, from_mels: bool = False, mesh=None
                             ) -> Callable[[VocoderTrainState, object],
                                           Tuple[VocoderTrainState, VocoderMetrics]]:
@@ -301,7 +312,11 @@ def make_vocoder_train_step(cfg: Dict, from_mels: bool = False, mesh=None
 
     The discriminators run in train mode, so the MSD's spectral-norm scale
     power-iterates once on y and once on y_hat in each of the two losses:
-    four iterations a step, upstream's and masg_tpu's cadence.
+    four iterations a step, upstream's and masg_tpu's cadence. Each phase is
+    a span of `utils.profiling` (`vocoder_train.generator`, `.disc_update`,
+    `.gen_update`, each AdamW update in `.optimizer`). Each update drops the
+    old gradients (`zero_grad`) at its start, so a step's gradients stay on
+    the parameters until the next step.
 
     `mesh` (`parallel.mesh.DataMesh`): the batch is this rank's equal share
     of the global one. Every loss is a mean over equal shards, so the mean
@@ -326,39 +341,47 @@ def make_vocoder_train_step(cfg: Dict, from_mels: bool = False, mesh=None
             mel_in, y = batch
         else:
             y = batch
-            mel_in = mel_spectrogram_hifigan(y, f_max=f_max_in, **kw)
-        y_mel = mel_spectrogram_hifigan(y, f_max=f_max_loss, **kw)
         lr = state.schedule(state.step)
         for opt in (state.gen_opt, state.disc_opt):
             for group in opt.param_groups:
                 group["lr"] = lr
 
-        y_hat = state.generator(mel_in)
+        with profiling.span("vocoder_train.generator", stream_time=y):
+            if not from_mels:
+                mel_in = mel_spectrogram_hifigan(y, f_max=f_max_in, **kw)
+            y_hat = state.generator(mel_in)
 
         # the discriminators' update, on the generator output detached
-        state.disc_opt.zero_grad(set_to_none=True)
-        r, g, _, _ = discriminate(state, y, y_hat.detach())
-        d_loss = discriminator_loss(r, g)
-        d_loss.backward()
-        if mesh is not None:
-            mesh.reduce_grads(state.disc_params(), average=True)
-        state.disc_opt.step()
+        with profiling.span("vocoder_train.disc_update", stream_time=y):
+            state.disc_opt.zero_grad(set_to_none=True)
+            r, g, _, _ = discriminate(state, y, y_hat.detach())
+            d_loss = discriminator_loss(r, g)
+            d_loss.backward()
+            if mesh is not None:
+                mesh.reduce_grads(state.disc_params(), average=True)
+            with profiling.span("vocoder_train.optimizer"):
+                state.disc_opt.step()
 
         # the generator's, against the UPDATED discriminators; its loss
         # reaches the generator's parameters only (`inputs`), so no gradient
         # of it is left on the discriminators for their next update
-        state.gen_opt.zero_grad(set_to_none=True)
-        r, g, fr, fg = discriminate(state, y, y_hat)
-        adv = generator_adv_loss(g)
-        fm = feature_loss(fr, fg)
-        mel_l1 = torch.mean(torch.abs(y_mel - mel_spectrogram_hifigan(y_hat, f_max=f_max_loss,
-                                                                       **kw)))
-        g_loss = adv + fm + 45.0 * mel_l1
-        torch.autograd.backward(g_loss, inputs=list(state.generator.parameters()))
-        if mesh is not None:
-            mesh.reduce_grads(state.generator.parameters(), average=True)
-        state.gen_opt.step()
+        with profiling.span("vocoder_train.gen_update", stream_time=y):
+            state.gen_opt.zero_grad(set_to_none=True)
+            r, g, fr, fg = discriminate(state, y, y_hat)
+            adv = generator_adv_loss(g)
+            fm = feature_loss(fr, fg)
+            y_mel = mel_spectrogram_hifigan(y, f_max=f_max_loss, **kw)
+            mel_l1 = torch.mean(torch.abs(y_mel - mel_spectrogram_hifigan(
+                y_hat, f_max=f_max_loss, **kw)))
+            g_loss = adv + fm + 45.0 * mel_l1
+            torch.autograd.backward(g_loss, inputs=list(state.generator.parameters()))
+            if mesh is not None:
+                mesh.reduce_grads(state.generator.parameters(), average=True)
+            with profiling.span("vocoder_train.optimizer"):
+                state.gen_opt.step()
         state.step += 1
+        profiling.count("vocoder_train.steps", 1)
+        profiling.count("vocoder_train.samples", y.numel())
         metrics = torch.stack([x.detach() for x in (d_loss, g_loss, adv, fm, mel_l1)])
         if mesh is not None and mesh.parts > 1:
             metrics = mesh.sum(metrics) / mesh.parts

@@ -38,14 +38,35 @@ program records:
   samples the generator made (B x T x hop) and those kept after the trim;
 - C `vocoder.device_int16` (`vocoder_infer`): the rows converted on the card
   (none on the CPU);
-- S `data.to_device` (`train/step.py:batch_to_device`): a batch's
-  host-to-device copies;
+- S `data.to_device` (`train/step.py:batch_to_device`,
+  `train/vocoder.py:batch_to_device`): a batch's host-to-device copies;
 - S `train.forward` (the train step closures of `train/step.py`): the
   forward(s) and the loss;
 - S `train.backward` (`train/step.py:_update`): autograd, the gradient fill
   and the reductions after it;
 - S `train.optimizer` (`_update`): the master copy, the clip, Adam, the
   schedule, `zero_grad` and the copy back;
+- S `vocoder_train.generator` + stream (`train/vocoder.py`, the GAN step):
+  the generator's input mel (unless given) and its forward;
+- S `vocoder_train.disc_update` + stream (the GAN step): the discriminators
+  on the audio and the detached generator output, their loss's backward,
+  the gradients' reduction (data parallel) and their AdamW update;
+- S `vocoder_train.gen_update` + stream (the GAN step): the updated
+  discriminators on the audio and the generator output, the adversarial,
+  feature and mel losses (both loss mels), the backward into the generator,
+  the reduction and its AdamW update;
+- S `vocoder_train.optimizer` (the GAN step), a child of each of the two
+  spans above: the AdamW step. Its `zero_grad` (`set_to_none`, no device
+  work) opens the parent span, so a step's gradients stay on the parameters
+  until the next step;
+- C `vocoder_train.steps`, `vocoder_train.samples` (the GAN step): steps
+  taken and audio samples trained on (B x segment a step, this rank's);
+- C `hifigan.plain_mrf_stages` (`models/hifigan.py:HiFiGANGenerator.forward`):
+  the MRF stages that ran block by block (cuDNN's convolutions on the
+  card, ATen's on the CPU) instead of through `fused_mrf_stage`, on either
+  device; every stage when the generator trains
+  (`fused_mrf=False`), those above 64 channels in inference (none counted,
+  and no key, when every stage is fused);
 - C `profiling.dropped_spans` (here): spans not kept once `MAX_SPANS` are
   held.
 """
