@@ -15,6 +15,7 @@ import contextlib
 import copy
 import itertools
 import json
+import math
 import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -25,6 +26,10 @@ from ..device import DeviceLike, resolve_device
 from ..models import melgan
 from ..models.hifigan import HiFiGANGenerator, fold_weight_norm, init_random_weights
 from ..utils import profiling
+
+# `vocoder_infer`'s cut is a multiple of this many frames, which bounds the
+# shapes that cuDNN and K4 see
+CUT_MULTIPLE = 16
 
 DEFAULT_HIFIGAN_CONFIG = {
     # hifigan/config.json (universal V1)
@@ -250,15 +255,38 @@ def _int16_rows_to_host(wav: torch.Tensor, max_wav_value: float,
     return [flat_np[end - n: end] for n, end in zip(sizes, ends)]
 
 
+def cut_frames(vocoder: Vocoder, frames: int,
+               lengths: Optional[Sequence[int]] = None) -> int:
+    """The mel frames `vocoder_infer` runs the generator over:
+    T_cut = min(T, round_up(ceil(max(lengths) / hop) + R, CUT_MULTIPLE)),
+    R the generator's `right_context_frames`. T itself without `lengths`,
+    with a negative length (Python's slice rule then keeps samples counted
+    from the end), or for a generator with no such bound (MelGAN)."""
+    gen = vocoder.generator
+    if lengths is None or len(lengths) == 0 or not hasattr(gen, "right_context_frames"):
+        return frames
+    n = [int(x) for x in lengths]
+    if min(n) < 0:
+        return frames
+    hop = math.prod(gen.upsample_rates)
+    need = -(-max(n) // hop) + gen.right_context_frames()
+    return min(frames, -(-need // CUT_MULTIPLE) * CUT_MULTIPLE)
+
+
 def vocoder_infer(mels: torch.Tensor, vocoder: Vocoder,
                   lengths: Optional[Sequence[int]] = None) -> List[np.ndarray]:
     """(B, T, n_mels) -> list of int16 wavs, truncated to `lengths` samples
     (reference vocoder_infer, utils/model.py:74-92).
 
+    With `lengths`, the generator runs over the mel's first `cut_frames`
+    frames only, in one call: every kept sample reads the same frames as
+    in a run over all T, so the rows are those of the whole mel trimmed.
     A wav made on the card is converted and trimmed there
     (`trim_to_int16`) and only the kept samples come to the host; a wav on
     the CPU goes through numpy's `to_int16`. Both give the same samples."""
-    wav = vocoder(mels)
+    t = mels.shape[1]
+    t_cut = cut_frames(vocoder, t, lengths)
+    wav = vocoder(mels[:, :t_cut])
     with profiling.span("vocoder.to_int16"):
         if wav.is_cuda:
             out = _int16_rows_to_host(wav, vocoder.max_wav_value, lengths)
@@ -268,6 +296,8 @@ def vocoder_infer(mels: torch.Tensor, vocoder: Vocoder,
                 out = [w[: int(n)] for w, n in zip(out, lengths)]
     if profiling.enabled():
         profiling.count("vocoder.samples", wav.numel())
+        if t_cut < t:
+            profiling.count("vocoder.cut_frames", len(out) * (t - t_cut))
         profiling.count("vocoder.useful_samples", sum(len(w) for w in out))
         if wav.is_cuda:
             profiling.count("vocoder.device_int16", len(out))

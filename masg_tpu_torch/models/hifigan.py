@@ -95,6 +95,37 @@ class HiFiGANGenerator(nn.Module):
         self.conv_post = nn.Conv1d(ch // (2 ** len(upsample_rates)), 1, 7, padding=3)
         # (stage, dtype, device) -> (parameter key, pinned tensors, PackedStage)
         self._mrf_packed: dict = {}
+        self._right_frames = None
+
+    def right_context_frames(self) -> int:
+        """R, how far to the right the wav's samples read the mel, in frames
+        counted as `infer.vocoder.measure_receptive_field_frames` counts a
+        side: a sample's own frame and each later frame it may read. So the
+        first n samples of a run over T >= ceil(n / hop) + R frames equal
+        those of a run over any longer mel that starts with the same frames
+        (in exact arithmetic: a convolution of another length may round
+        otherwise).
+
+        Worked out once from the layers, for any weights: `reach` is how many
+        samples, at the current rate, before the end of the signal may read
+        past the end of the mel (a stride-1 conv adds (k - 1) d - padding;
+        a transposed conv's output o reads input rows up to
+        (o + padding) // stride; an MRF stage adds its longest resblock
+        chain, the residuals and the mean reading no further)."""
+        if self._right_frames is None:
+            def conv(m: nn.Conv1d) -> int:
+                return (m.kernel_size[0] - 1) * m.dilation[0] - m.padding[0]
+
+            n_res = len(self.resblock_kernel_sizes)
+            hop, reach = 1, conv(self.conv_pre)
+            for i, up in enumerate(self.ups):
+                hop *= up.stride[0]
+                reach = reach * up.stride[0] + up.padding[0]
+                reach += max(sum(conv(c1) + conv(c2) for c1, c2 in zip(b.convs1, b.convs2))
+                             for b in self.resblocks[i * n_res:(i + 1) * n_res])
+            reach += conv(self.conv_post)
+            self._right_frames = -(-reach // hop) + 1
+        return self._right_frames
 
     def _stage_is_fused(self, channels: int) -> bool:
         return (self.fused_mrf and channels <= 64

@@ -35,7 +35,11 @@ program records:
   wait for it (and so for the generator) and the row views; on the CPU:
   numpy's int16 conversion and trim of the float wav;
 - C `vocoder.samples`, `vocoder.useful_samples` (`vocoder_infer`): the
-  samples the generator made (B x T x hop) and those kept after the trim;
+  samples the generator made (B x T_cut x hop, T_cut the frames it ran
+  over: `infer/vocoder.py:cut_frames`) and those kept after the trim;
+- C `vocoder.cut_frames` (`vocoder_infer`): the mel frames the cut left out,
+  B x (T - T_cut) a call (no key while the cut never engages; read by no
+  metric);
 - C `vocoder.device_int16` (`vocoder_infer`): the rows converted on the card
   (none on the CPU);
 - S `data.to_device` (`train/step.py:batch_to_device`,

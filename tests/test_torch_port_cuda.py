@@ -560,3 +560,49 @@ def test_vocoder_infer_makes_the_int16_wav_on_the_card(dtype):
     assert [len(w) for w in whole] == [t] * b
     for g, w in zip(whole, numpy_path(voc.wav, [t] * b)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [512, 128], ids=["v1", "v2"])
+def test_the_vocoders_cut_moves_no_sample_beyond_one_lsb_on_the_card(width):
+    """HiFi-GAN V1 and V2 at B = 16 over a 1000-frame mel, f32 with K4 in
+    their narrow stages: `vocoder_infer` with lengths (the generator over
+    the first `cut_frames` frames) against the same generator over all
+    1000 frames, trimmed. Every kept sample reads the same frames; only the
+    algorithms cuDNN picks for the shorter shape may round otherwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import numpy as np
+
+    from masg_tpu_torch.infer.vocoder import (DEFAULT_HIFIGAN_CONFIG, Vocoder, build_generator,
+                                              cut_frames, vocoder_infer)
+    from masg_tpu_torch.models.hifigan import init_random_weights
+    from masg_tpu_torch.ops.fused_mrf import fused_mrf_stage
+    from masg_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, frames, hop = 16, 1000, 256
+    gen = build_generator(dict(DEFAULT_HIFIGAN_CONFIG, upsample_initial_channel=width))
+    init_random_weights(gen, torch.Generator().manual_seed(6))
+    voc = Vocoder(gen.cuda())
+    rng = np.random.default_rng(7)
+    lengths = [0, hop, 731 * hop, 731 * hop - 5] + rng.integers(0, 731 * hop, b - 4).tolist()
+    t_cut = cut_frames(voc, frames, lengths)
+    assert t_cut == 752  # ceil(731) + 14, rounded up to 16s
+    mel = torch.randn(b, frames, 80, generator=torch.Generator().manual_seed(8)).cuda()
+    n0 = fused_mrf_stage.launches
+    profiling.clear()
+    with profiling.recording():
+        cut = vocoder_infer(mel, voc, lengths)
+    counts = profiling.counters()
+    profiling.clear()
+    assert fused_mrf_stage.launches - n0 == (2 if width == 512 else 4)
+    assert counts["vocoder.samples"] == b * t_cut * hop
+    assert counts["vocoder.cut_frames"] == b * (frames - t_cut)
+    whole = vocoder_infer(mel, voc)
+    assert [len(w) for w in cut] == lengths
+    assert np.abs(np.concatenate(cut).astype(np.int32)).max() > 1000
+    diff = max(int(np.abs(c.astype(np.int32) - w[:n].astype(np.int32)).max(initial=0))
+               for c, w, n in zip(cut, whole, lengths))
+    assert diff <= 1, diff

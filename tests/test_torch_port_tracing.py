@@ -188,6 +188,19 @@ def test_vocoder_infer_records_the_int16_copy_and_its_samples(lengths):
     assert [len(w) for w in wavs] == ([frames * 256] * B if lengths is None else lengths)
 
 
+def test_vocoder_infer_counts_the_frames_its_cut_leaves_out():
+    voc = tiny_vocoder()
+    frames, lengths = 64, [3000, 1000]
+    # ceil(3000 / 256) = 12 frames, + R = 14, rounded up to 16s: 32
+    t_cut = 32
+    with profiling.recording():
+        wavs = vocoder_infer(torch.randn(B, frames, 80), voc, lengths)
+    assert profiling.counters() == {"vocoder.samples": B * t_cut * 256,
+                                    "vocoder.cut_frames": B * (frames - t_cut),
+                                    "vocoder.useful_samples": sum(lengths)}
+    assert [len(w) for w in wavs] == lengths
+
+
 @pytest.mark.parametrize("grad_acc_step", [1, 2])
 def test_a_train_step_records_its_phases_in_order(grad_acc_step):
     cfg = tiny_config(grad_acc_step)
