@@ -11,8 +11,7 @@ from masg_tpu.ops.attention import flash_attention as jax_flash_attention
 from masg_tpu.ops.attention import mha_attention as jax_mha_attention
 from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_plain,
                                           mha_attention)
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def _qkv(seed, b, h, t, dh):

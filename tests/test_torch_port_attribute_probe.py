@@ -3,7 +3,6 @@ against masg_tpu's: `AttributeAxes` scores and `embed_wavs` with a GE2E
 embedder whose weights are carried across, `extract_f0` bit for bit, and
 masg_tpu's four tests/test_attribute_probe.py cases re-run on the port."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -15,8 +14,7 @@ from masg_tpu_torch.audio.f0 import extract_f0
 from masg_tpu_torch.compat.from_jax import ge2e_state_dict_from_jax
 from masg_tpu_torch.eval.attribute_probe import AttributeAxes, embed_wavs, mean_voiced_f0
 from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
-
-torch.set_num_threads(2)
+from torch_port_support import jax_variables
 
 
 def _corner_cloud(rng, center, n=6, d=8, spread=0.05):
@@ -42,8 +40,7 @@ def test_embed_wavs_matches_with_carried_weights():
     init: each wav's chunked d-vector within 1e-5, one wav shorter than a
     chunk (padded) among them."""
     je = JaxSpeechEmbedder(n_mels=80, hidden=32, n_layers=2, proj=16)
-    p = jax.tree.map(np.asarray, je.init(jax.random.PRNGKey(0),
-                                         jnp.zeros((2, 150, 80)))["params"])
+    p = jax_variables(je, 0, jnp.zeros((2, 150, 80)))["params"]
     te = SpeechEmbedder(n_mels=80, hidden=32, n_layers=2, proj=16)
     te.load_state_dict(ge2e_state_dict_from_jax(p), strict=True)
     rng = np.random.default_rng(4)

@@ -38,13 +38,11 @@ from masg_tpu_torch.core.checkpoint import CheckpointManager
 from masg_tpu_torch.models.ganlike import GANLike
 from masg_tpu_torch.train.state import create_train_state
 from masg_tpu_torch.train.step import batch_to_device, make_ganlike_train_step, make_train_step
-from test_torch_port_adversarial import (D_LAYERS, TOTAL_STEP, adversarial_batches,
-                                         jax_discriminator, port_discriminator)
-from test_torch_port_train import (HIDDEN, METRICS, _np, _to64, assert_params, assert_traj,
-                                   jax_init, make_batches, no_flax_dropout, port_model,
-                                   tiny_config)  # noqa: F401  (a fixture)
-
-torch.set_num_threads(2)
+from torch_port_support import (D_LAYERS, HIDDEN, METRICS, TOTAL_STEP, _np, _to64,
+                                adversarial_batches, assert_params, assert_traj,
+                                jax_discriminator, jax_init, jax_optimizer, jax_run, jax_step,
+                                make_batches, no_flax_dropout, port_discriminator, port_model,
+                                tiny_config)  # noqa: F401  (a fixture)
 
 
 def _jax_side(variant, batches):
@@ -54,22 +52,19 @@ def _jax_side(variant, batches):
     model, params, bs = jax_init(cfg_j, batches[0], dtype=jnp.float64)
     params, bs = _to64(params), _to64(bs)
     if variant == "plain":
-        tx = jax_make_optimizer(cfg_j.train.optimizer, HIDDEN)
-        return cfg_j, model, params, bs, jax.jit(jax_make_train_step(model)), tx, None
+        tx = jax_optimizer(cfg_j.train.optimizer, HIDDEN)
+        return cfg_j, model, params, bs, jax_step(jax_make_train_step, model), tx, None
     jd, dparams = jax_discriminator()
-    tx = jax_make_optimizer(cfg_j.train.optimizer, HIDDEN, clip_subtree="model",
-                            torch_lstm_bias_compat=True)
-    step = jax.jit(jax_make_ganlike_train_step(model, jd, total_step=TOTAL_STEP))
+    tx = jax_optimizer(cfg_j.train.optimizer, HIDDEN, clip_subtree="model",
+                       torch_lstm_bias_compat=True)
+    step = jax_step(jax_make_ganlike_train_step, model, discriminator=jd,
+                    total_step=TOTAL_STEP)
     return cfg_j, model, {"model": params, "discriminator": _to64(dparams)}, bs, step, tx, jd
 
 
 def _jax_run(step_fn, jstate, batches, first=0):
-    traj = []
-    for i, b in enumerate(batches):
-        jstate, m = step_fn(jstate, {k: jnp.asarray(v) for k, v in b.items()},
-                            jax.random.PRNGKey(first + i))
-        traj.append({k: float(getattr(m, k)) for k in METRICS})
-    return traj, jax.device_get(jstate)
+    traj, final, _ = jax_run(step_fn, jstate, batches, first=first)
+    return traj, final
 
 
 def _port_state(variant, cfg, params, bs):

@@ -14,6 +14,7 @@ import shutil
 import numpy as np
 import pytest
 import yaml
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

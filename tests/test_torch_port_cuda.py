@@ -11,8 +11,7 @@ import os
 
 import pytest
 import torch
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 @pytest.mark.cuda

@@ -18,14 +18,12 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from masg_tpu.data.synthetic import build_synthetic_experiment_dir as jax_build_experiment_dir
 from masg_tpu.data.synthetic import make_config_dir as jax_make_config_dir
 from masg_tpu_torch.data.synthetic import build_synthetic_experiment_dir, make_config_dir
 from masg_tpu_torch.demo import full_pipeline, mid_attribute, stages
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 # a tiny HiFi-GAN (stages of C = 16, 8, 4, 2) and discriminators
 TINY_HIFIGAN = {

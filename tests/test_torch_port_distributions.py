@@ -19,8 +19,7 @@ from masg_tpu.distributions import wasserstein as jw
 from masg_tpu.ops.gmm import DiagGMM as JaxGMM
 from masg_tpu_torch.distributions import wasserstein as tw
 from masg_tpu_torch.ops import gmm as tgmm
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def random_gmm(rng, k=3, d=8):

@@ -27,8 +27,7 @@ from masg_tpu_torch.core import config as tcfg
 from masg_tpu_torch.infer import synthesis as tsyn
 from masg_tpu_torch.infer import vocoder as tvoc
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 # a narrow HiFi-GAN whose two MRF stages (C = 64, 32) both take the fused path
 VOC = {"upsample_rates": [4, 4], "upsample_kernel_sizes": [8, 8],

@@ -12,8 +12,7 @@ from masg_tpu.ops.attention import flash_attention as jax_flash_attention
 from masg_tpu_torch.ops.attention import (flash_attention, flash_attention_dkv,
                                           flash_attention_dkv_plain, flash_attention_dq,
                                           flash_attention_dq_plain)
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def _inputs(seed, lengths, h, t, dh, dtype=np.float32):

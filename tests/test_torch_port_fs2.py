@@ -16,8 +16,7 @@ from masg_tpu.models import FastSpeech2 as JaxFastSpeech2
 from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax, with_duration_bias
 from masg_tpu_torch.core import config as tcfg
 from masg_tpu_torch.models import FastSpeech2
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 MAX_MEL = 64
 

@@ -30,29 +30,19 @@ from masg_tpu_torch.models import speaker_encoder as tse
 from masg_tpu_torch.models.discriminator import LangDiscriminator
 from masg_tpu_torch.preprocessor import ge2e_preprocess as tpre
 from masg_tpu_torch.train import ge2e as tge2e
-
-torch.set_num_threads(2)
+from torch_port_support import (_np, _to64, jax_variables, memo,
+                                no_flax_dropout)  # noqa: F401  (a fixture)
 
 N, M, NMELS, T_FRAMES = 3, 2, 20, 24
 HIDDEN, LAYERS, PROJ = 32, 2, 16
 LR = 1e-3
 
 
-def _np(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _to64(tree):
-    return jax.tree.map(lambda x: np.asarray(x, np.float64)
-                        if np.issubdtype(np.asarray(x).dtype, np.floating) else np.asarray(x),
-                        tree)
-
-
 def jax_embedder(dtype=jnp.float32, n_mels=NMELS, seed=0, bias_scale=0.1):
     """masg_tpu's embedder and params (its LSTM biases, zero at init, moved off 0)."""
     je = jse.SpeechEmbedder(n_mels=n_mels, hidden=HIDDEN, n_layers=LAYERS, proj=PROJ,
                             dtype=dtype)
-    p = _np(je.init(jax.random.PRNGKey(seed), jnp.zeros((2, T_FRAMES, n_mels), dtype))["params"])
+    p = jax_variables(je, seed, jnp.zeros((2, T_FRAMES, n_mels), dtype))["params"]
     rng = np.random.default_rng(seed + 100)
     p = jax.tree.map(lambda x: (x + bias_scale * rng.normal(size=x.shape)).astype(x.dtype), p)
     return je, p
@@ -205,7 +195,7 @@ def test_fresh_embedder_takes_masg_tpus_init():
     te = tse.SpeechEmbedder(n_mels=80, hidden=64, n_layers=2, proj=PROJ)
     je = jse.SpeechEmbedder(n_mels=80, hidden=64, n_layers=2, proj=PROJ)
     want = ge2e_state_dict_from_jax(
-        _np(je.init(jax.random.PRNGKey(0), jnp.zeros((2, T_FRAMES, 80)))["params"]))
+        jax_variables(je, 0, jnp.zeros((2, T_FRAMES, 80)))["params"])
     got = te.state_dict()
     assert set(got) == set(want)
     for name, w in got.items():
@@ -310,13 +300,25 @@ def _batches(path, seed, n):
     return out
 
 
-@pytest.fixture(scope="module")
-def no_dropout():
-    import flax.linen as fnn
+def jax_ge2e_step(je, threshold, use_ge2e_backward):
+    """masg_tpu's (init_state, jitted step), one per argument set: the
+    threshold probe at infinity and the cases run there share one compile."""
+    return memo(("ge2e step", repr(je), threshold, use_ge2e_backward),
+                lambda: jge2e.make_ge2e_train_step(je, N, M, lr=LR,
+                                                   use_ge2e_backward=use_ge2e_backward,
+                                                   da_threshold=threshold))
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fnn.Dropout, "__call__", lambda self, x, deterministic=None, rng=None: x)
-        yield
+
+def jax_ge2e_init(je, mels):
+    """masg_tpu's initial GE2E train state for `mels`' shape, under `jax.jit`
+    and once per process (the state draws nothing from the threshold or the
+    ablation switch): a numpy copy."""
+    def build():
+        init_state, _ = jax_ge2e_step(je, math.inf, True)
+        return jax.device_get(jax.jit(init_state)(jax.random.PRNGKey(0), jnp.asarray(mels)))
+
+    return jax.tree.map(np.copy, memo(("ge2e init", repr(je), mels.shape, mels.dtype.str),
+                                      build))
 
 
 def jax_trajectory(batches, threshold, use_ge2e_backward=True, subroutine_after=None,
@@ -325,9 +327,8 @@ def jax_trajectory(batches, threshold, use_ge2e_backward=True, subroutine_after=
     with jax.enable_x64(True):
         je = jse.SpeechEmbedder(n_mels=NMELS, hidden=HIDDEN, n_layers=LAYERS, proj=PROJ,
                                 dtype=jnp.float64)
-        init_state, step = jge2e.make_ge2e_train_step(
-            je, N, M, lr=LR, use_ge2e_backward=use_ge2e_backward, da_threshold=threshold)
-        state = init_state(jax.random.PRNGKey(0), jnp.asarray(batches[0][0]))
+        _, step = jax_ge2e_step(je, threshold, use_ge2e_backward)
+        state = jax_ge2e_init(je, batches[0][0])
         to64 = lambda t: jax.tree.map(  # noqa: E731
             lambda x: jnp.asarray(x, jnp.float64)
             if jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating) else x, t)
@@ -342,7 +343,8 @@ def jax_trajectory(batches, threshold, use_ge2e_backward=True, subroutine_after=
             if i in anneal_after:
                 lr_scale /= 2
             if i == subroutine_after:
-                _, sub_step, _ = jge2e.make_da_subroutine_step(je)
+                _, sub_step, _ = memo(("ge2e da step", repr(je)),
+                                      lambda: jge2e.make_da_subroutine_step(je))
                 p_main, p_da = jge2e._split_da(state.embedder_params)
                 opt_da = state.opt_state_da
                 for s_mels, s_langs in sub_stream:
@@ -397,7 +399,7 @@ def _threshold(batches, use_ge2e_backward):
 
 @pytest.mark.parametrize("case", ["always_gated", "gate_toggles", "ablation_no_ge2e_backward",
                                   "da_subroutine_shares_adam", "lr_anneal"])
-def test_ge2e_trajectory_matches(case, chunk_corpus, no_dropout):
+def test_ge2e_trajectory_matches(case, chunk_corpus, no_flax_dropout):  # noqa: F811
     """masg_tpu's five GE2E update-math cases (tests/test_ge2e_train_parity.py:
     255-330), port against masg_tpu, f64, dropout off, batches from both
     packages' SpeakerChunkDataset with one seed."""

@@ -10,8 +10,7 @@ import sys
 
 import pytest
 import torch
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "masg_tpu_torch")
@@ -225,3 +224,22 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     bp.update({f"{c}_0_bias": torch.zeros(32) for c in ("convs1", "convs2")})
     fused_mrf_stage(torch.randn(1, 20, 32), [bp], (3,), ((1,),))
     assert counts() == before
+
+
+def test_port_test_harness_loads_without_jax():
+    """The card's tests run without tests/conftest.py and maybe without JAX:
+    the port tests' harness, and the kernel tests through it, import with
+    JAX and masg_tpu blocked, and set the port tests' thread count."""
+    tests = os.path.join(REPO, "tests")
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{REPO!r}, {tests!r}]\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch_port_support, test_torch_port_cuda, torch\n"
+        "print(torch.get_num_threads())\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["2"]

@@ -18,7 +18,6 @@ from masg_tpu.core import config as jcfg
 from masg_tpu.models import FastSpeech2 as JaxFastSpeech2
 from masg_tpu.models.jdit import JDIT as JaxJDIT
 from masg_tpu.models.jdit import attention_to_duration as jax_attention_to_duration
-from masg_tpu.train.optim import make_optimizer as jax_make_optimizer
 from masg_tpu.train.state import create_train_state as jax_create_train_state
 from masg_tpu.train.step import make_train_step as jax_make_train_step
 from masg_tpu_torch.compat.from_jax import jdit_state_dict_from_jax
@@ -27,27 +26,16 @@ from masg_tpu_torch.models import FastSpeech2
 from masg_tpu_torch.models.jdit import JDIT, attention_to_duration
 from masg_tpu_torch.train.state import create_train_state
 from masg_tpu_torch.train.step import batch_to_device, jdit_generator, make_train_step
-from test_torch_port_train import (HIDDEN, METRICS, _to64, assert_params, assert_traj,
-                                   make_batches, port_model, tiny_config)
-
-torch.set_num_threads(2)
+from torch_port_support import (HIDDEN, METRICS, _to64, assert_params, assert_traj,
+                                jax_optimizer, jax_run, jax_step, make_batches,
+                                no_flax_dropout, port_model,
+                                tiny_config)  # noqa: F401  (a fixture)
 
 # teacher widths: the reference's structure at 16-32
 DIMS = dict(attention_rnn_dim=32, decoder_rnn_dim=24, prenet_dim=16, attention_dim=16,
             location_filters=8, location_kernel=5)
 CFG_DIMS = dict(attention_rnn_dim=32, decoder_rnn_dim=24, prenet_hidden=16, attention_dim=16,
                 location_filters=8, location_kernel=5)
-
-
-@pytest.fixture(scope="module")
-def no_flax_dropout():
-    import flax.linen as fnn
-
-    # the identity: JDIT's always-on prenet sets `deterministic` in its
-    # constructor and rejects a second value at call time
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fnn.Dropout, "__call__", lambda self, x, deterministic=None, rng=None: x)
-        yield
 
 
 def no_teacher_dropout(model):
@@ -162,15 +150,10 @@ def test_f64_jdit_trajectory_matches(no_flax_dropout):
     params, bs = masg_tpu_fs2_params(cfg)
     with jax.enable_x64(True):
         model = JaxFastSpeech2.from_config(cfg_j, dtype=jnp.float64)
-        tx = jax_make_optimizer(cfg_j.train.optimizer, HIDDEN, torch_lstm_bias_compat=True)
+        tx = jax_optimizer(cfg_j.train.optimizer, HIDDEN, torch_lstm_bias_compat=True)
         jstate = jax_create_train_state(model, {"params": params, "batch_stats": bs}, tx)
-        step_fn = jax.jit(jax_make_train_step(model, use_jdit=True))
-        want = []
-        for i, b in enumerate(batches):
-            jstate, m = step_fn(jstate, {k: jnp.asarray(v) for k, v in b.items()},
-                                jax.random.PRNGKey(i))
-            want.append({k: float(getattr(m, k)) for k in METRICS})
-        final = jax.device_get(jstate)
+        want, final, _ = jax_run(jax_step(jax_make_train_step, model, use_jdit=True), jstate,
+                                 batches)
     m = no_teacher_dropout(port_model(cfg, params, bs, torch.float64))
     state = create_train_state(m, cfg.train.optimizer, HIDDEN)
     step = make_train_step(m, use_jdit=True)

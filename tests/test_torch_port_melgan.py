@@ -32,8 +32,7 @@ from masg_tpu_torch.infer.vocoder import (Vocoder, get_vocoder, measure_receptiv
 from masg_tpu_torch.models.melgan import (MelGANGenerator, convert_descript_state_dict,
                                           init_random_weights, reflect_pad)
 from test_melgan import build_torch_descript_generator
-
-torch.set_num_threads(2)
+from torch_port_support import masg_tpu_engine, port_tiny_config
 
 TINY = dict(ngf=8, n_residual_layers=2, ratios=(4, 2))
 NARROW = dict(ngf=8)  # descript's structure and hop 256 at 128 -> 8 channels
@@ -211,16 +210,14 @@ def test_serving_engine_with_melgan_matches_masg_tpu():
     """`ServingEngine` with a MelGAN vocoder (ngf 8) against masg_tpu's
     mel-only engine + its MelGAN vocoder over the full padded mel, trimmed:
     mel_len identical, the wav within 2 LSB."""
-    from masg_tpu.infer.serving import ServingEngine as JaxEngine
     from masg_tpu.infer.serving import with_duration_bias
     from test_fastspeech2 import tiny_config
-    from test_torch_port_serving import port_tiny_config
 
     from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax
     from masg_tpu_torch.infer.serving import ServingEngine
 
     gen = port_generator(seed=4, **NARROW)
-    jeng = JaxEngine(tiny_config(), vocoder=None, text_buckets=(16,), frames_per_phone=12)
+    jeng = masg_tpu_engine(tiny_config(), vocoder=None, text_buckets=(16,), frames_per_phone=12)
     jeng.variables = with_duration_bias(jax.tree.map(np.asarray, dict(jeng.variables)),
                                         math.log(5.0))
     jvoc = JaxVocoder(JaxMelGAN(**NARROW), masg_tpu_params(gen), mel_scale=LN10)

@@ -17,8 +17,7 @@ from masg_tpu_torch.compat.from_jax import hifigan_state_dict_from_jax
 from masg_tpu_torch.infer.vocoder import load_generator_checkpoint
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.ops.fused_mrf import chain_halo, fused_mrf_stage, fused_mrf_stage_plain
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 # tests/test_fused_mrf.py's small generator: stages of C = 64 and C = 32
 KW = dict(n_mels=8, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),

@@ -19,8 +19,7 @@ from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.ops.fused_mrf import (check_stage_args, fused_mrf_stage_plain,
                                           kernel_channels, pack_stage_weights,
                                           unpack_stage_weights)
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 # upstream config_v2.json (128 channels, kernels 3 / 7 / 11) and the demos'
 # DEMO_HIFIGAN (kernels 3 / 7): MRF stages at C = 64, 32, 16, 8; 8 mels here

@@ -12,8 +12,7 @@ import torch
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.ops.fused_mrf import (PackedStage, fused_mrf_stage, pack_stage_weights,
                                           tf32_round, unpack_stage_weights)
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
 KW = dict(n_mels=8, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),

@@ -18,8 +18,7 @@ import torch.nn.functional as F
 
 from masg_tpu_torch.ops.fused_mrf import (LRELU_SLOPE, fused_mrf_stage_plain, get_padding,
                                           pack_stage_weights, tf32_round)
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
 

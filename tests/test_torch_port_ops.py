@@ -18,8 +18,7 @@ from masg_tpu_torch.ops import gmm as tgmm
 from masg_tpu_torch.ops.length_regulator import expand_scalars, regulate_lengths
 from masg_tpu_torch.ops.masks import masked_fill_time, pad_mask_from_lengths
 from masg_tpu_torch.ops.positional import sinusoid_table
-
-torch.set_num_threads(1)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def test_pad_mask_and_masked_fill():

@@ -30,11 +30,10 @@ from masg_tpu.core import config as jcfg
 from masg_tpu_torch.models import FastSpeech2
 from masg_tpu_torch.models.speaker_encoder import SpeechEmbedder
 from masg_tpu_torch.parallel.mesh import DataMesh, data_parallel_size
-from test_torch_port_adversarial import adversarial_batches
-from test_torch_port_train import (_to64, jax_init, jax_trajectory, make_batches,
-                                   no_flax_dropout)  # noqa: F401  (a fixture)
+from torch_port_support import (_to64, adversarial_batches, jax_init, jax_trajectory,
+                                make_batches, no_flax_dropout, port_disc_sd,
+                                tiny_config)  # noqa: F401  (a fixture)
 
-torch.set_num_threads(2)
 JOB_S = 60.0
 
 
@@ -50,16 +49,6 @@ def _init_sd(use_jdit=False):
     m = FastSpeech2.from_config(cases.tiny_config(use_jdit=use_jdit), use_flash=False)
     return {k: v.double().numpy() if v.is_floating_point() else v.numpy()
             for k, v in m.state_dict().items()}
-
-
-def _disc_sd():
-    torch.manual_seed(3)
-    d = SpeechEmbedder(n_mels=80, **cases.DISC).double()
-    g = torch.Generator().manual_seed(5)
-    with torch.no_grad():  # every weight off its init, the LSTM biases off 0
-        for p in d.parameters():
-            p.add_(0.05 * torch.randn(p.shape, generator=g, dtype=p.dtype))
-    return {k: v.numpy() for k, v in d.state_dict().items()}
 
 
 def assert_same_run(got, want, what, rtol=1e-5, ptol=1e-6):
@@ -88,7 +77,7 @@ def test_two_ranks_match_one(pool, variant, acc, n):
     adversarial = variant in ("use_clf", "ganlike")
     batches = (adversarial_batches(n, seed=20, jitter=variant == "ganlike") if adversarial
                else make_batches(n, seed=21))
-    args = (variant, _init_sd(variant == "jdit"), _disc_sd() if adversarial else None,
+    args = (variant, _init_sd(variant == "jdit"), port_disc_sd() if adversarial else None,
             batches, acc)
     want = cases.fs2_steps(0, 1, *args)
     got = pool.run(cases.fs2_steps, *args, timeout_s=JOB_S)
@@ -102,10 +91,9 @@ def test_two_ranks_match_masg_tpu(pool, no_flax_dropout):  # noqa: F811
     """The plain step over 2 ranks against masg_tpu's jitted step on one
     device, from masg_tpu's initial weights (f64, dropout off)."""
     from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax
-    from test_torch_port_train import tiny_config as jax_tiny_config
 
     batches = make_batches(3, seed=0)
-    cfg_j = jax_tiny_config(jcfg)
+    cfg_j = tiny_config(jcfg)
     with jax.enable_x64(True):
         model, params, bs = jax_init(cfg_j, batches[0], dtype=jnp.float64)
         params, bs = _to64(params), _to64(bs)

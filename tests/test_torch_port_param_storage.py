@@ -22,9 +22,7 @@ from masg_tpu_torch.models import FastSpeech2
 from masg_tpu_torch.train.optim import BF16MomentAdam
 from masg_tpu_torch.train.state import create_train_state
 from masg_tpu_torch.train.step import batch_to_device, make_eval_step, make_train_step
-from test_torch_port_train import make_batches, tiny_config
-
-torch.set_num_threads(2)
+from torch_port_support import make_batches, tiny_config
 
 SHAPES = {"a": (6, 5), "b": (5,), "c": (3, 4, 2)}
 

@@ -26,8 +26,7 @@ from masg_tpu_torch.audio.f0_native import dio_native, dio_stonemask_native
 from masg_tpu_torch.audio.stft import mel_spectrogram_and_energy
 from masg_tpu_torch.data.synthetic import make_synthetic_corpus, write_config_dir
 from test_f0 import FRAME_PERIOD, SR, synth_tone
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def _peak_err(got, want):

@@ -20,8 +20,7 @@ from masg_tpu_torch.compat.from_jax import with_duration_bias
 from masg_tpu_torch.core.config import load_config_dir
 from masg_tpu_torch.data.synthetic import write_config_dir, write_preprocessed_corpus
 from masg_tpu_torch.infer.synthesis import load_model
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 TINY = {"transformer": {"encoder_layer": 2, "decoder_layer": 2, "encoder_hidden": 64,
                         "decoder_hidden": 64, "conv_filter_size": 128},

@@ -11,8 +11,9 @@ port's own single-request path, with masg_tpu's bars
 (tests/test_serving.py), and the HTTP and batcher contracts are masg_tpu's.
 masg_tpu's side is its mel-only engine, then its vocoder over the full
 padded mel, trimmed: the wav its fused per-bucket graph gives, through the
-vocoder jit that tests/test_torch_port_streaming.py compiles at the same mel
-caps (256 and 384 frames), so each compiles once per process.
+vocoder jit of tests/torch_port_support.py that
+tests/test_torch_port_streaming.py compiles at the same mel caps (256 and 384
+frames), so each compiles once per process.
 Every wait, join and HTTP call has a timeout; every server and batcher is
 closed in a finalizer.
 """
@@ -36,28 +37,10 @@ from masg_tpu_torch.infer.serving import (DynamicBatcher, RequestTimeout, Server
                                           ServingEngine, pick_bucket)
 from masg_tpu_torch.infer.vocoder import Vocoder, vocoder_infer
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
-
-torch.set_num_threads(2)
+from torch_port_support import masg_tpu_engine, masg_tpu_vocoder, port_tiny_config
 
 BUCKETS, FPP = (16, 32), 12  # mel caps 256 and 384
 HTTP_TIMEOUT = 120
-
-
-def port_tiny_config():
-    """The port's copy of masg_tpu's tiny_config (tests/test_fastspeech2.py)."""
-    from masg_tpu_torch.core.config import (ExperimentConfig, ModelConfig, PreprocessConfig,
-                                            Stats, TrainConfig)
-
-    cfg = ExperimentConfig(preprocess=PreprocessConfig(), model=ModelConfig(),
-                           train=TrainConfig(),
-                           stats=Stats(pitch=(-2.0, 9.0, 0.0, 1.0), energy=(-1.5, 8.0, 0.0, 1.0)),
-                           speakers={f"spk{i}": [i, "M", "ja"] for i in range(4)})
-    tr = cfg.model.transformer
-    tr.encoder_layer = tr.decoder_layer = 2
-    tr.encoder_hidden = tr.decoder_hidden = 64
-    tr.conv_filter_size = 128
-    cfg.model.variance_predictor.filter_size = 64
-    return cfg
 
 
 @pytest.fixture(scope="module")
@@ -65,16 +48,15 @@ def pair():
     """((masg_tpu mel-only engine, masg_tpu vocoder), port engine) on the
     same weights."""
     import jax
-    from masg_tpu.infer.serving import ServingEngine as JaxEngine
     from masg_tpu.infer.serving import with_duration_bias
     from test_fastspeech2 import tiny_config
-    from test_torch_port_streaming import masg_tpu_vocoder
 
     from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax
 
     gen = HiFiGANGenerator(upsample_initial_channel=32)
     init_random_weights(gen, torch.Generator().manual_seed(1))
-    jeng = JaxEngine(tiny_config(), vocoder=None, text_buckets=BUCKETS, frames_per_phone=FPP)
+    jeng = masg_tpu_engine(tiny_config(), vocoder=None, text_buckets=BUCKETS,
+                           frames_per_phone=FPP)
     variables = with_duration_bias(jax.tree.map(np.asarray, dict(jeng.variables)),
                                    math.log(5.0))
     jeng.variables = variables

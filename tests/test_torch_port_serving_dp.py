@@ -20,9 +20,9 @@ from masg_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
 from masg_tpu_torch.infer.vocoder import Vocoder
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from test_serving_mesh import _requests
-from test_torch_port_serving import port_tiny_config
+from torch_port_support import (jax_variables, masg_tpu_engine, masg_tpu_vocoder,
+                                port_tiny_config)
 
-torch.set_num_threads(2)
 BUCKETS, FPP = (16,), 8
 
 
@@ -30,28 +30,26 @@ BUCKETS, FPP = (16,), 8
 def engines():
     """(port single engine, port 2-replica engine, masg_tpu 2-device mesh
     engine), all on the same weights."""
-    from masg_tpu.infer.serving import ServingEngine as JaxEngine
     from masg_tpu.infer.serving import with_duration_bias
     from masg_tpu.models import FastSpeech2 as JaxFastSpeech2
     from masg_tpu.parallel.mesh import make_mesh
     from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax
     from test_fastspeech2 import tiny_config
-    from test_torch_port_streaming import masg_tpu_vocoder
 
     gen = HiFiGANGenerator(upsample_initial_channel=32)
     init_random_weights(gen, torch.Generator().manual_seed(1))
     cfg_j = tiny_config()
     model = JaxFastSpeech2.from_config(cfg_j)
     L = BUCKETS[0]
-    variables = model.init({"params": jax.random.PRNGKey(0)}, np.zeros(1, np.int32),
-                           np.ones((1, L), np.int32), np.asarray([L], np.int32), 64,
-                           accents=np.zeros((1, L), np.int32),
-                           speaker_meta=np.zeros(
-                               (1, cfg_j.preprocess.speaker_generation.one_hot_dim)))
-    variables = with_duration_bias(jax.tree.map(np.asarray, dict(variables)), math.log(5.0))
+    variables = jax_variables(model, {"params": 0}, np.zeros(1, np.int32),
+                              np.ones((1, L), np.int32), np.asarray([L], np.int32), 64,
+                              accents=np.zeros((1, L), np.int32),
+                              speaker_meta=np.zeros(
+                                  (1, cfg_j.preprocess.speaker_generation.one_hot_dim)))
+    variables = with_duration_bias(variables, math.log(5.0))
     mesh = make_mesh(n_data=2, n_model=1, devices=jax.devices()[:2])
-    jdp = JaxEngine(cfg_j, variables=variables, vocoder=masg_tpu_vocoder(gen),
-                    text_buckets=BUCKETS, frames_per_phone=FPP, mesh=mesh)
+    jdp = masg_tpu_engine(cfg_j, variables=variables, vocoder=masg_tpu_vocoder(gen),
+                          text_buckets=BUCKETS, frames_per_phone=FPP, mesh=mesh)
 
     cfg = port_tiny_config()
     sd = fs2_state_dict_from_jax(variables["params"], variables["batch_stats"], cfg)

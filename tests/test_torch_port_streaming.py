@@ -17,11 +17,9 @@ init x3 at 512 channels, which at 32 channels leaves the wav at 1 LSB.
 masg_tpu's side compiles one XLA graph per mel length (~10 s each on a CPU),
 so every comparison with it runs at the two window lengths of (KJ, CJ), and
 tests/test_torch_port_serving.py vocodes at those same lengths through the
-same jitted function (`masg_tpu_vocoder`): each compiles once per process.
+same jitted function (`masg_tpu_vocoder` in tests/torch_port_support.py): each
+compiles once per process.
 """
-
-import copy
-import functools
 
 import numpy as np
 import pytest
@@ -29,33 +27,10 @@ import torch
 
 from masg_tpu_torch.infer import vocoder as tvoc
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
-
-torch.set_num_threads(2)
+from torch_port_support import masg_tpu_vocoder
 
 K, C = 192, 24  # masg_tpu's chunk and context frames
 KJ, CJ = 128, 128  # against masg_tpu: windows of 256 and 384 frames, its serving caps
-
-
-@functools.lru_cache(maxsize=None)
-def _masg_tpu_v1_32():
-    from masg_tpu.infer.vocoder import Vocoder
-    from masg_tpu.models.hifigan import HiFiGANGenerator as JaxGenerator
-
-    return Vocoder(JaxGenerator(upsample_initial_channel=32), None)
-
-
-def masg_tpu_vocoder(generator):
-    """masg_tpu's Vocoder over the weights of the port's 32-channel V1
-    `generator`. Every such Vocoder shares one jitted function (the params
-    are its argument), so a mel length compiles once for all weights."""
-    from masg_tpu.infer.vocoder import DEFAULT_HIFIGAN_CONFIG
-    from masg_tpu.models.hifigan import convert_torch_state_dict
-
-    voc = copy.copy(_masg_tpu_v1_32())
-    voc.params = convert_torch_state_dict(
-        {k: v.numpy() for k, v in generator.state_dict().items()},
-        dict(DEFAULT_HIFIGAN_CONFIG, upsample_initial_channel=32))
-    return voc
 
 
 @pytest.fixture(scope="module")

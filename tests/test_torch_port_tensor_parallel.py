@@ -38,12 +38,9 @@ from masg_tpu_torch.core import config as tcfg
 from masg_tpu_torch.models import FastSpeech2
 from masg_tpu_torch.parallel.mesh import rule_dim, sharded_names
 from masg_tpu_torch.parallel.tensor import ModelAxis
-from test_torch_port_adversarial import adversarial_batches
-from test_torch_port_parallel import _disc_sd
-from test_torch_port_train import (_to64, jax_init, jax_trajectory, make_batches,
-                                   no_flax_dropout)  # noqa: F401  (a fixture)
-
-torch.set_num_threads(2)
+from torch_port_support import (_to64, adversarial_batches, jax_trajectory, make_batches,
+                                no_flax_dropout, port_disc_sd,
+                                tiny_config)  # noqa: F401  (a fixture)
 JOB_S = 60.0
 VARIANTS = ("plain", "use_clf", "ganlike", "jdit", "bf16")
 
@@ -61,7 +58,7 @@ def _inputs(variant):
     adversarial = variant in ("use_clf", "ganlike")
     batches = (adversarial_batches(3, seed=20, jitter=variant == "ganlike") if adversarial
                else make_batches(3, seed=21))
-    return tp.full_init(variant == "jdit"), batches, _disc_sd() if adversarial else None
+    return tp.full_init(variant == "jdit"), batches, port_disc_sd() if adversarial else None
 
 
 def _spec(variant, shape, **kw):
@@ -274,10 +271,9 @@ def test_one_by_two_matches_masg_tpu(pool, no_flax_dropout):  # noqa: F811
     from masg_tpu.compat.torch_fs2 import convert_torch_fastspeech2
     from masg_tpu.models import FastSpeech2 as JaxFastSpeech2
     from masg_tpu_torch.compat.from_jax import fs2_state_dict_from_jax
-    from test_torch_port_train import tiny_config as jax_tiny_config
 
     batches = make_batches(2, seed=0)
-    cfg_j = jax_tiny_config(jcfg)
+    cfg_j = tiny_config(jcfg)
     cfg = dp.tiny_config()
     with jax.enable_x64(True):
         params, bs = map(_to64, convert_torch_fastspeech2(

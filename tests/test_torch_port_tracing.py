@@ -21,8 +21,7 @@ from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.train.state import create_train_state
 from masg_tpu_torch.train.step import batch_to_device, make_train_step
 from masg_tpu_torch.utils import profiling
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 B, L, T, HIDDEN = 2, 9, 40, 64
 

@@ -13,6 +13,7 @@ import torch
 from masg_tpu.utils import mcd as jmcd
 from masg_tpu_torch.utils import mcd as tmcd
 from masg_tpu_torch.utils.profiling import trace, true_sync
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 
 def _identical(m):

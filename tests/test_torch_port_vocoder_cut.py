@@ -24,8 +24,7 @@ from masg_tpu_torch.infer.vocoder import (CUT_MULTIPLE, DEFAULT_HIFIGAN_CONFIG, 
 from masg_tpu_torch.models import melgan
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator, init_random_weights
 from masg_tpu_torch.utils import profiling
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 T, HOP, R = 48, 256, 14  # R: V1's and V2's kernels, strides and paddings
 

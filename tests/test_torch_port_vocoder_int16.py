@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from masg_tpu_torch.infer.vocoder import to_int16, trim_to_int16
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 T = 64
 MAX_WAV = 32768.0

@@ -28,8 +28,7 @@ from masg_tpu_torch.data import vocoder as tdata
 from masg_tpu_torch.models.hifigan_disc import build_discriminators
 from masg_tpu_torch.train import vocoder as tv
 from test_vocoder_training import TINY_CFG, TINY_GEN, _sine_batch
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 CFG = TINY_CFG
 B, SPE, N_STEPS = 2, 2, 4  # steps_per_epoch 2: the lr decays after update 2

@@ -12,8 +12,7 @@ import torch
 from masg_tpu_torch.models.hifigan import HiFiGANGenerator
 from masg_tpu_torch.train import vocoder as tv
 from masg_tpu_torch.utils import profiling
-
-torch.set_num_threads(2)
+import torch_port_support  # noqa: F401  (the port tests' thread count)
 
 TINY = {"segment_size": 512, "hop_size": 16, "n_fft": 64, "win_size": 64, "num_mels": 8,
         "sampling_rate": 22050, "fmin": 0, "fmax": 8000, "fmax_for_loss": None,
